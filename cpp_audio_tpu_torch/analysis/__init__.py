@@ -1,0 +1,1 @@
+"""analysis layer of the PyTorch port (mirrors cpp_audio_tpu/analysis)."""

@@ -1,0 +1,1 @@
+"""models layer of the PyTorch port (mirrors cpp_audio_tpu/models)."""

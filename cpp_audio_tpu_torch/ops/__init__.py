@@ -1,0 +1,1 @@
+"""ops layer of the PyTorch port (mirrors cpp_audio_tpu/ops)."""

@@ -1,0 +1,1 @@
+"""utils layer of the PyTorch port (mirrors cpp_audio_tpu/utils)."""
