@@ -8,10 +8,17 @@ Phases (any failure exits non-zero and prints no result):
      voice-bank kernel built from cpp_audio_tpu_torch/csrc/ (nvcc).
   2. kernel against its plain PyTorch version, on the card:
      (a) the bench workload's per-block compacted tables (11, 48, .) at
-         block 2^18, LINEAR curves; (b) a dense bank whose voices carry
-         eased curve codes covering all 23 curves. Bar: max |diff| <= 2e-5
-         (tests/test_pallas_voicebank.py:45). Kernel and plain median times
-         at shape (a), from CUDA events.
+         block 2^18, LINEAR curves (what the chain passed before the kernel
+         selected live rows per tile); (b) a dense bank whose voices carry
+         eased curve codes covering all 23 curves; (c) the dense (64, .)
+         tables the chain passes now. Bar: max |diff| <= 2e-5
+         (tests/test_pallas_voicebank.py:45). Kernel times at (a) and (c)
+         on two stopwatches (CUDA events): `cuda_ms`, one synchronised
+         call with the host's enqueue on the clock (the kernels line's
+         `ms`, at (a), as since the first slice), and `cuda_ms_amortized`,
+         back-to-back calls behind a device sleep; plain time at (a); the
+         live voice-samples, the kernel's bound
+         (cuda_voicebank.kernel_bound) and the share reached.
   3. the offline chain at bench width (bench.py:52-75 rebuilt on the port's
      modules: seed 42, 64 voices, 60 s at 44.1 kHz, block 2^18, 110 Hz
      square carrier, float32) through run_offline_chain on cuda. The kernel
@@ -98,7 +105,9 @@ def eased_bank(n_samples: int, seed: int = 3):
 
 
 def cuda_ms(fn, reps: int = 7) -> float:
-    """Median device time of fn() in ms (CUDA events), after one warm-up."""
+    """Median device time of fn() in ms (CUDA events), after one warm-up:
+    one call per sample, so the host's enqueue of the call is on the clock.
+    The `ms` of the kernels line since the first slice."""
     import torch
 
     fn()
@@ -115,6 +124,28 @@ def cuda_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def cuda_ms_amortized(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device time of one fn() in ms (CUDA events): the median over rounds
+    of `reps` back-to-back calls, each round queued behind a ~10 ms device
+    sleep so the host's enqueue time stays off the card's clock."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def phase_build():
     from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 
@@ -127,10 +158,26 @@ def phase_build():
             print(f"[build] {line.strip()}")
 
 
-def phase_kernel_vs_plain():
-    """Returns (max_abs_err over both inputs, kernel ms, plain ms) at (a)."""
+def _hold(name, tables, statics) -> float:
+    """max |kernel - plain| on one table set; fails above the bar."""
     import torch
 
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+
+    k_out = cv.render_blocks_cuda(*tables, **statics)
+    p_out = cv.render_blocks_plain(*tables, **statics)
+    torch.cuda.synchronize()
+    err = float((k_out - p_out).abs().max())
+    print(f"[kernel] {name} {tuple(tables[0].shape)} B={statics['block_size']}: "
+          f"max|kernel-plain| = {err:.3e}  peak {float(p_out.abs().max()):.4f}")
+    if not err <= KERNEL_BAR:
+        raise RuntimeError(f"kernel disagrees with plain on {name}: {err} > {KERNEL_BAR}")
+    return err
+
+
+def phase_kernel_vs_plain() -> dict:
+    """Holds the kernel against its plain version on (a), (b), (c) and
+    times it; returns the measured keys of its entry in the kernels line."""
     from cpp_audio_tpu_torch.models import sine_synth, voicebank
     from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 
@@ -139,36 +186,45 @@ def phase_kernel_vs_plain():
     bank = sine_synth.bank_from_schedule(sch, cfg)
     args, st = voicebank.prepare_bank_arrays(bank, n, BENCH_BLOCK, device="cuda")
     cargs, cst = voicebank.compact_block_args(args, st)
-    shape = tuple(cargs[0].shape)
-    if shape[:2] != (11, 48):
-        raise RuntimeError(f"bench tables compacted to {shape}, expected (11, 48, 8)")
-    k_out = cv.render_blocks_cuda(*cargs, **cst)
-    p_out = cv.render_blocks_plain(*cargs, **cst)
-    torch.cuda.synchronize()
-    err_a = float((k_out - p_out).abs().max())
-    print(f"[kernel] (a) compacted LINEAR {shape} B={BENCH_BLOCK}: "
-          f"max|kernel-plain| = {err_a:.3e}  peak {float(p_out.abs().max()):.4f}")
-
+    if tuple(cargs[0].shape[:2]) != (11, 48):
+        raise RuntimeError(f"bench tables compacted to {tuple(cargs[0].shape)}, "
+                           "expected (11, 48, 8)")
+    err = _hold("(a) compacted LINEAR", cargs, cst)
     ne, be = 1 << 17, 1 << 14
     eargs, est = voicebank.prepare_bank_arrays(eased_bank(ne), ne, be, device="cuda")
     if sorted(set(eargs[4].flatten().tolist())) != list(range(23)):
         raise RuntimeError("eased bank does not cover all 23 curve codes")
-    ek = cv.render_blocks_cuda(*eargs, **est)
-    ep = cv.render_blocks_plain(*eargs, **est)
-    torch.cuda.synchronize()
-    err_b = float((ek - ep).abs().max())
-    print(f"[kernel] (b) dense eased {tuple(eargs[0].shape)} B={be}: "
-          f"max|kernel-plain| = {err_b:.3e}  peak {float(ep.abs().max()):.4f}")
-    for name, err in (("a", err_a), ("b", err_b)):
-        if not err <= KERNEL_BAR:
-            raise RuntimeError(f"kernel disagrees with plain on ({name}): {err} > {KERNEL_BAR}")
+    err = max(err, _hold("(b) dense eased", eargs, est))
+    err = max(err, _hold("(c) dense headline (the chain's)", args, st))
 
-    ms = cuda_ms(lambda: cv.render_blocks_cuda(*cargs, **cst))
+    def kernel_a():
+        return cv.render_blocks_cuda(*cargs, **cst)
+
+    def kernel_c():
+        return cv.render_blocks_cuda(*args, **st)
+
+    times = {"ms": cuda_ms(kernel_a), "ms_amortized": cuda_ms_amortized(kernel_a),
+             "ms_chain_tables": cuda_ms(kernel_c),
+             "ms_chain_tables_amortized": cuda_ms_amortized(kernel_c)}
     plain_ms = cuda_ms(lambda: cv.render_blocks_plain(*cargs, **cst), reps=3)
-    vs = shape[0] * shape[1] * BENCH_BLOCK
-    print(f"[kernel] (a) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"({vs / ms / 1e6:.2f} G voice-samples/s kernel)")
-    return max(err_a, err_b), ms, plain_ms
+    bound = cv.kernel_bound(cargs[0], cargs[1], n_channels=2, **cst)
+    if cv.kernel_bound(args[0], args[1], n_channels=2, **st)[
+            "live_voice_samples"] != bound["live_voice_samples"]:
+        raise RuntimeError("compacted and dense tables disagree on the live work")
+    live = bound["live_voice_samples"]
+    print(f"[kernel] (a) kernel {times['ms']:.4f} ms per call, "
+          f"{times['ms_amortized']:.4f} ms amortized; plain {plain_ms:.4f} ms; "
+          f"(c) kernel {times['ms_chain_tables']:.4f} ms per call, "
+          f"{times['ms_chain_tables_amortized']:.4f} ms amortized")
+    print(f"[bound] live voice-samples {live} ({bound['segments']}), "
+          f"{bound['flops']} FP32 flops, {bound['bytes']} bytes at (a): bound "
+          f"{bound['bound_ms']:.5f} ms by {bound['bound_by']}; share reached "
+          + ", ".join(f"{bound['bound_ms'] / t:.3f} by {k}" for k, t in times.items())
+          + f"; {live / times['ms_amortized'] / 1e6:.2f} G live voice-samples/s "
+          "at (a) amortized")
+    return {"max_abs_err": err, **times, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None, "live_voice_samples": live}
 
 
 def _chain_inputs(n, sch, cfg):
@@ -306,7 +362,7 @@ def main() -> int:
               f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
               f"x{torch.cuda.device_count()}")
         phase_build()
-        err, ms, plain_ms = phase_kernel_vs_plain()
+        measured = phase_kernel_vs_plain()
         launches = phase_chain(card)
         phase_small_reference()
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
@@ -318,9 +374,7 @@ def main() -> int:
         "source": "cpp_audio_tpu_torch/csrc/voicebank.cu",
         "replaces": "cpp_audio_tpu/ops/pallas_voicebank.py:30",
         "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        **measured,
     }]}
     print(json.dumps(kernels))
     print(card)

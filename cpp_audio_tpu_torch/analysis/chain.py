@@ -46,8 +46,10 @@ def run_offline_chain(bank: voicebank.VoiceBank, n_samples: int,
                       *, block_size: int = 1 << 15, device="cuda",
                       timings: dict | None = None) -> OfflineChainResult:
     """Render `bank`, resynthesize its mono mixdown, and vocode it on
-    `device`. The synth leg renders per-block compacted voice tables through
-    ops/cuda_voicebank.render_blocks (the CUDA kernel for CUDA tensors).
+    `device`. The synth leg renders the dense (V, ·) voice tables through
+    ops/cuda_voicebank.render_blocks: the CUDA kernel for CUDA tensors,
+    which picks each sample tile's live rows itself, so no per-block
+    compaction (and no host round trip of the tables) precedes it.
 
     timings: when a dict is given, the device is synchronised after each
     stage and the stage's wall seconds are stored under "synth",
@@ -72,10 +74,9 @@ def run_offline_chain(bank: voicebank.VoiceBank, n_samples: int,
     wdt = dtype_of(dtype)
     args, statics = voicebank.prepare_bank_arrays(bank, n_samples, block_size,
                                                   dtype, device=dev)
-    args, statics = voicebank.compact_block_args(args, statics)
 
     # 1. synth render + mono mixdown
-    out = voicebank.voicebank_blocks_compact_impl(*args, **statics)
+    out = voicebank.voicebank_blocks_impl(*args, **statics)
     mono = out.reshape(-1, out.shape[-1])[:n_samples].sum(dim=1)
     stage("synth")
 

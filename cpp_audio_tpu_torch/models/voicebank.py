@@ -170,7 +170,10 @@ def compact_block_args(args, statics):
 
     The selection runs on the host (the tables are a few KB); the result
     goes back to the tables' device. Returns ((fpb, ipb, upb, gainsb,
-    codesb), statics) with a leading n_blocks axis on every tensor.
+    codesb), statics) with a leading n_blocks axis on every tensor. The
+    CUDA kernel selects live rows per sample tile itself, so the chain
+    passes it dense tables; this layout serves the JAX package's
+    compacted-table contract (voicebank_blocks_compact_impl).
     """
     dev = args[0].device
     fp, ip, up, gains, codes = (a.cpu().numpy() for a in args)

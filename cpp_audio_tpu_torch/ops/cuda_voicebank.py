@@ -19,6 +19,12 @@ Returns (n_blocks * block_size, C).
 `render_blocks` dispatches on the tensors' device: CPU tensors take the
 plain PyTorch version, CUDA tensors launch the kernel (or raise). There is
 no fallback between the two. `LAUNCHES` counts kernel launches.
+
+The kernel renders each KERNEL_TILE-sample tile from the rows that can
+sound in it; `tile_live_rows` is that selection in plain PyTorch (the same
+int32 offsets and float compares), and `render_blocks_tiled_plain` renders
+through it, so the CPU tests reach the tile edges and the voice order.
+`segment_voice_samples` counts the work the kernel's bound is built from.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..utils.interp import ease_select
@@ -43,6 +50,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+KERNEL_TILE = 1024  # samples per CTA tile of csrc/voicebank.cu (voicebank_tile())
 _MASK32 = 0xFFFFFFFF
 _NCO_SCALE = 2.0 ** -31  # int32 NCO counts -> rad/pi
 
@@ -88,12 +96,9 @@ def load_library() -> ctypes.CDLL:
     lib.voicebank_render.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_int, ctypes.c_int, vp]
+    lib.voicebank_tile.restype = ctypes.c_int
+    lib.voicebank_tile.argtypes = []
     return lib
-
-
-def _as_int32_bits(up: torch.Tensor) -> torch.Tensor:
-    """uint32 NCO words (int64 in [0, 2^32)) -> the same bits as int32."""
-    return torch.where(up >= 2**31, up - 2**32, up).to(torch.int32)
 
 
 def render_blocks_cuda(fp, ip, up, gains, codes, *, block_size: int,
@@ -127,7 +132,7 @@ def render_blocks_cuda(fp, ip, up, gains, codes, *, block_size: int,
         raise ValueError(f"n_blocks {n_blocks} exceeds the grid's y limit")
     fp_c = fp.contiguous()
     ip_c = ip.contiguous()
-    up_c = _as_int32_bits(up).contiguous()
+    up_c = up.contiguous()  # the kernel reads the words' low 32 bits
     g_c = gains.contiguous()
     codes_c = codes.contiguous()
     n_rows = fp.shape[-2]
@@ -169,13 +174,15 @@ def nco_words(b0: int, press: torch.Tensor, inc: torch.Tensor,
 
 
 def _render_block_plain(b: int, fp, ip, up, gains, codes, *, block_size: int,
-                        kinds) -> torch.Tensor:
-    """One (V, block_size) tile mixed to (block_size, C): the kernel's math
-    in plain PyTorch (uint32 NCO carried in int64, masked to 32 bits —
-    torch on the CPU has no uint32 add)."""
+                        kinds, k0: int = 0, k1: int | None = None) -> torch.Tensor:
+    """Samples [k0, k1) of block b (default: the whole block) from (V, ·)
+    tables, mixed to (k1 - k0, C): the kernel's math in plain PyTorch
+    (uint32 NCO carried in int64, masked to 32 bits — torch on the CPU has
+    no uint32 add)."""
     wdt = fp.dtype
     dev = fp.device
-    k_i = torch.arange(block_size, dtype=torch.int64, device=dev)[None, :]
+    k1 = block_size if k1 is None else k1
+    k_i = torch.arange(k0, k1, dtype=torch.int64, device=dev)[None, :]
     k = k_i.to(wdt)
     press = ip[:, 0:1].to(torch.int64)
     release = ip[:, 1:2].to(torch.int64)
@@ -216,6 +223,120 @@ def render_blocks_plain(fp, ip, up, gains, codes, *, block_size: int,
     if not outs:
         return torch.zeros((0, gains.shape[-1]), dtype=fp.dtype, device=fp.device)
     return torch.cat(outs, dim=0)
+
+
+def tile_edges(block_size: int, tile: int = KERNEL_TILE) -> list[tuple[int, int]]:
+    """The kernel's sample tiles of one block, [k0, k1); the last is ragged
+    when block_size is not a multiple of the tile."""
+    return [(k0, min(k0 + tile, block_size)) for k0 in range(0, block_size, tile)]
+
+
+def tile_live_rows(fp, ip, *, b: int, block_size: int, k0: int,
+                   k1: int) -> torch.Tensor:
+    """Indices, in voice order, of the rows of (V, ·) tables that can sound
+    in samples [k0, k1) of block b: not skipped, pressed by sample k1 - 1,
+    and the release tail not over at sample k0. The offsets are the
+    kernel's: int32 differences b*B - press and b*B - release, converted to
+    the tables' float type, plus the sample index, compared as the
+    per-sample envelope compares them. A row left out renders exact zeros
+    over the whole range: its envelope segment never decreases with k."""
+    b0 = b * block_size
+    wdt = fp.dtype
+    tp_last = _wrap_i32(b0 - ip[:, 0].to(torch.int64)).to(wdt) + float(k1 - 1)
+    tr_first = _wrap_i32(b0 - ip[:, 1].to(torch.int64)).to(wdt) + float(k0)
+    live = ~(fp[:, 7] > 0.5) & ~(tp_last < 0) & (tr_first + 1.0 < fp[:, 4])
+    return torch.nonzero(live).flatten()
+
+
+def render_blocks_tiled_plain(fp, ip, up, gains, codes, *, block_size: int,
+                              n_blocks: int, tile: int = KERNEL_TILE) -> torch.Tensor:
+    """render_blocks_plain as the kernel organises it: each tile of each
+    block renders only its `tile_live_rows`, in voice order; a tile with
+    none is zeros. Dense or per-block compacted tables."""
+    kinds = sorted(set(torch.unique(codes).tolist()))
+    compact = fp.dim() == 3
+    C = gains.shape[-1]
+    outs = []
+    for b in range(n_blocks):
+        tab = (fp[b], ip[b], up[b], gains[b], codes[b]) if compact else (
+            fp, ip, up, gains, codes)
+        for k0, k1 in tile_edges(block_size, tile):
+            rows = tile_live_rows(tab[0], tab[1], b=b, block_size=block_size,
+                                  k0=k0, k1=k1)
+            if rows.numel() == 0:
+                outs.append(torch.zeros((k1 - k0, C), dtype=fp.dtype,
+                                        device=fp.device))
+                continue
+            outs.append(_render_block_plain(
+                b, *(t[rows] for t in tab), block_size=block_size, kinds=kinds,
+                k0=k0, k1=k1))
+    if not outs:
+        return torch.zeros((0, C), dtype=fp.dtype, device=fp.device)
+    return torch.cat(outs, dim=0)
+
+
+SEGMENTS = ("attack", "hold", "decay", "sustain", "release")
+
+
+def segment_voice_samples(fp, ip, *, block_size: int, n_blocks: int) -> dict:
+    """(row, sample) pairs of a render in each envelope segment: the live
+    voice-samples, the work the kernel cannot skip. Counted in closed form
+    on the host from the kernel's thresholds (float32 A, A + H, A + H + D,
+    R against integer offsets t - press, t - release), block by block over
+    the block's own rows for compacted tables. Skipped rows count nothing."""
+    fp = fp.detach().cpu().numpy().astype(np.float32)
+    ip = ip.detach().cpu().numpy().astype(np.int64)
+    counts = dict.fromkeys(SEGMENTS, 0)
+    for b in range(n_blocks):
+        f = fp[b] if fp.ndim == 3 else fp
+        i = ip[b] if ip.ndim == 3 else ip
+        lo, hi = b * block_size, (b + 1) * block_size
+        keep = ~(f[:, 7] > 0.5)
+        p, rl = i[keep, 0], i[keep, 1]
+        A, H, D, R = (f[keep, j] for j in (1, 2, 3, 4))
+        AH = A + H
+        ends = [p + np.ceil(A), p + np.ceil(AH), p + np.ceil(AH + D)]
+        # pressed segments end at the release; the release tail runs while
+        # t - release + 1 < R, i.e. to release - 1 + ceil(R)
+        bounds = [p] + [np.minimum(e.astype(np.int64), rl) for e in ends] + [rl]
+        for name, a, z in zip(SEGMENTS[:4], bounds[:4], bounds[1:]):
+            counts[name] += int(np.maximum(0, np.minimum(z, hi) - np.maximum(a, lo)).sum())
+        rz = rl - 1 + np.ceil(R).astype(np.int64)
+        ra = np.maximum(rl, p)
+        counts["release"] += int(np.maximum(0, np.minimum(rz, hi) - np.maximum(ra, lo)).sum())
+    return counts
+
+
+FP32_PEAK = 67e12   # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
+HBM_PEAK = 3.35e12  # bytes/s, H100 SXM HBM3
+# FP32 operations per live voice-sample of csrc/voicebank.cu with LINEAR
+# curves, counted from the source (an FMA counts 2): every segment pays the
+# principal reduction's subtraction, z^2, the polynomial's four FMAs and
+# product (11) and one FMA per mixdown channel (2C); attack adds the sample
+# index, offset, +1, product with 1/A, clamp (2) and envelope product (7),
+# decay index, offset, -A, -H, +1, product with 1/max(D,1), clamp,
+# 1 + (S-1)x and envelope product (11), release index, offset, +1, product
+# with 1/R, clamp, 1 - x, top* and envelope product (9).
+_SEGMENT_FLOPS = {"attack": 7, "hold": 0, "decay": 11, "sustain": 0, "release": 9}
+_TABLE_ROW_BYTES = 8 * 4 + 2 * 4 + 2 * 8 + 3 * 4  # fp, ip, up (int64), codes
+
+
+def kernel_bound(fp, ip, *, block_size: int, n_blocks: int,
+                 n_channels: int) -> dict:
+    """The least time the card could take for this render: the larger of
+    the live voice-samples' FP32 operations over FP32_PEAK and the bytes
+    (tables read once, output written once) over HBM_PEAK."""
+    counts = segment_voice_samples(fp, ip, block_size=block_size,
+                                   n_blocks=n_blocks)
+    flops = sum(n * (11 + 2 * n_channels + _SEGMENT_FLOPS[s])
+                for s, n in counts.items())
+    rows = int(np.prod(fp.shape[:-1]))
+    n_bytes = (rows * (_TABLE_ROW_BYTES + 4 * n_channels)
+               + n_blocks * block_size * n_channels * 4)
+    t_ops, t_bytes = flops / FP32_PEAK, n_bytes / HBM_PEAK
+    return dict(live_voice_samples=sum(counts.values()), segments=counts,
+                flops=flops, bytes=n_bytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def render_blocks(fp, ip, up, gains, codes, *, block_size: int,

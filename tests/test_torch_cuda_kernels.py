@@ -7,8 +7,9 @@ has only PyTorch:
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -o addopts="" -q
 
 Bar: atol 2e-5 (tests/test_pallas_voicebank.py:45); the kernel and the plain
-version share every formula, and differ in FMA contraction and summation
-order only.
+version share every formula, and differ in FMA contraction, summation
+order and the kernel's integer principal reduction of the NCO word (<= 2.1e-7
+per voice-sample, csrc/voicebank.cu).
 """
 
 import numpy as np
@@ -29,6 +30,39 @@ def cuda_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def edge_tables(block_size, n_channels=2, *, device="cpu", seed=0):
+    """Hand-made dense (V, ·) tables whose rows start and end on a kernel
+    tile edge and one sample either side of it, plus skipped rows, over 4
+    blocks of which the last has no live row. E is the first sample of the
+    second tile of block 1; R = 500, so a row released at e - 498 sounds
+    last at sample e. Returns ((fp, ip, up, gains, codes), statics, E)."""
+    rng = np.random.default_rng(seed)
+    E = block_size + cv.KERNEL_TILE
+    press, release = [], []
+    for d in (-1, 0, 1):
+        press.append(E + d)                 # press on the edge
+        release.append(E + d + 2000)
+        e = E - 1 + d                       # last sounding sample on the edge
+        press.append(e - 498 - 3000)
+        release.append(e - 498)
+    for d in (-1, 0, 1):                    # skipped: released at the press
+        press.append(E + d)
+        release.append(E + d)
+    V = len(press)
+    skip = np.array([r <= p for p, r in zip(press, release)], np.float32)
+    fp = np.stack([rng.uniform(0.2, 0.5, V), np.full(V, 50.0), np.full(V, 10.0),
+                   np.full(V, 100.0), np.full(V, 500.0), np.full(V, 0.6),
+                   rng.uniform(0.3, 0.9, V), skip], axis=1).astype(np.float32)
+    ip = np.stack([press, release], axis=1).astype(np.int32)
+    inc = np.round(2.0 * rng.uniform(100, 2000, V) / 44100 * 2**31).astype(np.int64)
+    up = np.stack([inc, rng.integers(0, 2**32, V)], axis=1).astype(np.int64)
+    gains = rng.uniform(0.2, 1.0, (V, n_channels)).astype(np.float32)
+    code = np.arange(V) % 23
+    codes = np.stack([code, (code + 7) % 23, (code + 13) % 23], axis=1).astype(np.int32)
+    args = tuple(torch.from_numpy(a).to(device) for a in (fp, ip, up, gains, codes))
+    return args, dict(block_size=block_size, n_blocks=4), E
 
 
 def _bank(n_notes, *, eased, seed=0, n_channels=2):
@@ -75,3 +109,25 @@ def test_kernel_refuses_what_it_does_not_take(cuda_card):
     with pytest.raises(TypeError):  # float64 has no kernel: raise, no fallback
         cv.render_blocks(*args, **st)
     assert cv.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_kernel_tile_matches_python(cuda_card):
+    assert cv.load_library().voicebank_tile() == cv.KERNEL_TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size", [4096, 3000], ids=["tiled", "ragged"])
+@pytest.mark.parametrize("n_channels", [1, 2])
+def test_kernel_on_tile_edges(cuda_card, block_size, n_channels):
+    """Presses and release-tail ends on a tile edge and one sample either
+    side, skipped rows, and an empty last block; dense and compacted."""
+    args, st, _ = edge_tables(block_size, n_channels, device=cuda_card)
+    cargs, cst = tvb.compact_block_args(args, st)
+    for tables, statics in ((args, st), (cargs, cst)):
+        k_out = cv.render_blocks_cuda(*tables, **statics)
+        p_out = cv.render_blocks_plain(*tables, **statics)
+        torch.cuda.synchronize()
+        assert float(p_out.abs().max()) > 0.05
+        assert float((k_out - p_out).abs().max()) <= ATOL
+        assert bool((k_out[3 * block_size:] == 0).all())  # no live row
