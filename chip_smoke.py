@@ -26,6 +26,24 @@ Phases (any failure exits non-zero and prints no result):
      Checks: launches > 0, 665 analysis frames, finite outputs, both legs
      peak above 1e-3; then the same chain on a 2 s workload on cuda and on
      the CPU (plain versions), held at the parity tests' bars.
+  4. device chain: run_offline_chain_device (the device tracker in place of
+     the host one) on the same bench-width workload on cuda: first run,
+     5 warm walls, realtime factor, stages, profile, host synchronisations
+     per chain; launch count as in 3. Checks as in 3, resynth (T, 2), and
+     that the tracker took the frame-parallel path (its violation flag,
+     read through device_tracker._prep_lanes / _parallel_tables on the
+     chain's own peaks, is false).
+     Also step() of prepare_offline_chain_device alone (what the JAX
+     headline times), and the synchronising calls torch's sync debug mode
+     reports per chain and per step().
+  5. scan fallback: device_tracker.build_tables_device(_force_scan=True) on
+     the headline peaks, timed once beside the frame-parallel tracker; both
+     tables rendered, held at max|diff|/peak < 2e-3.
+  6. device reference, 2 s: the device chain on cuda against the same chain
+     on the CPU and against the host-tracker chain on cuda (vocoded atol
+     1e-4, resynth max|diff|/peak < 2e-3); then use_autotune=True on the JAX
+     autotune test's signal through resynthesize(implementation="device")
+     on cuda, against the CPU and the host tracker.
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -79,6 +97,33 @@ def make_synth_workload(sr, n, seed=42, n_voices=64):
         ahdsr=envelopes.AHDSR(attack=441, hold=100, decay=2000, release=8820,
                               sustain=0.7),
         block_size=BENCH_BLOCK,
+        dtype="float32",
+    )
+    return sch, cfg
+
+
+def make_chain_test_workload(sr, n):
+    """tests/test_chain.py:_workload (seed 7, 8 notes, block 2^13) on the
+    port's modules: the workload whose device and host chains the JAX
+    tests hold at max|diff|/peak < 2e-3 (tests/test_chain.py:63-83)."""
+    from cpp_audio_tpu_torch.core import events, voices
+    from cpp_audio_tpu_torch.models import sine_synth
+    from cpp_audio_tpu_torch.ops import envelopes
+
+    rng = np.random.default_rng(7)
+    notes = []
+    for i in range(8):
+        press = int(rng.uniform(0, n * 0.4))
+        release = press + int(rng.uniform(sr // 4, n // 2))
+        notes.append(events.Note(i, press, release, float(rng.uniform(110, 1760)),
+                                 float(rng.uniform(0.3, 1.0)),
+                                 float(rng.uniform(-1, 1))))
+    sch = voices.schedule_from_notes(notes, pad_to=8)
+    cfg = sine_synth.SineSynthConfig(
+        sample_rate=sr,
+        ahdsr=envelopes.AHDSR(attack=441, hold=100, decay=2000, release=4410,
+                              sustain=0.7),
+        block_size=1 << 13,
         dtype="float32",
     )
     return sch, cfg
@@ -271,30 +316,20 @@ def phase_chain(card: str):
             launches = cv.LAUNCHES
     wall = statistics.median(walls)
     r, v = res.resynth, res.vocoded
-    peak_r = float(r.abs().max())
-    peak_v = float(v.abs().max())
     print(f"[chain] tracker={res.tracker} n_frames={res.n_frames} "
           f"resynth {tuple(r.shape)} vocoded {tuple(v.shape)} "
-          f"peaks {peak_r:.4f} / {peak_v:.4f} launches={launches}")
+          f"peaks {float(r.abs().max()):.4f} / {float(v.abs().max()):.4f} "
+          f"launches={launches}")
     print(f"[chain] warm wall per render: median {wall * 1e3:.3f} ms, "
           f"max {max(walls) * 1e3:.3f} ms of {len(walls)} runs "
           f"({', '.join(f'{w * 1e3:.3f}' for w in walls)} ms), "
           f"realtime factor {SECONDS / wall:.1f}x on {card}")
-    if launches <= 0:
-        raise RuntimeError("the chain launched the voice-bank kernel no time")
-    if res.n_frames != 665:
-        raise RuntimeError(f"n_frames {res.n_frames} != 665")
-    if not (bool(torch.isfinite(r).all()) and bool(torch.isfinite(v).all())):
-        raise RuntimeError("non-finite chain output")
-    if not (peak_r > 1e-3 and peak_v > 1e-3):
-        raise RuntimeError(f"a chain leg is silent: {peak_r}, {peak_v}")
-    if r.dim() != 2 or r.shape[1] != 2:
-        raise RuntimeError(f"resynth shape {tuple(r.shape)} is not (T, 2)")
+    _check_chain_result(res, launches)
     _profile_chain(run)
     return launches
 
 
-def _profile_chain(run):
+def _profile_chain(run, tag=""):
     """Diagnostic: wall time by stage (synchronised after each) and device
     time by kernel over one warm chain run (not a pass/fail phase;
     torch.profiler may not see the device on every machine)."""
@@ -303,7 +338,7 @@ def _profile_chain(run):
 
     stages = {}
     run(timings=stages)
-    print("[stages] " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items())
+    print(f"[{tag}stages] " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items())
           + f" (sum {sum(stages.values()) * 1e3:.3f} ms, synchronised per stage)")
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -314,14 +349,15 @@ def _profile_chain(run):
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     except Exception as exc:  # noqa: BLE001 - diagnostic only
-        print(f"[profile] not measured ({type(exc).__name__}: {exc})")
+        print(f"[{tag}profile] not measured ({type(exc).__name__}: {exc})")
         return
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e3
-    print(f"[profile] device kernels {busy:.3f} ms of {wall * 1e3:.3f} ms wall "
-          f"(profiled run): device idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")
+    print(f"[{tag}profile] device kernels {busy:.3f} ms of {wall * 1e3:.3f} ms wall "
+          f"(profiled run): device idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}; "
+          f"{sum(r[2] for r in rows)} device activities (kernels and copies)")
     for key, us, count in rows[:12]:
-        print(f"[profile] {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+        print(f"[{tag}profile] {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
 def phase_small_reference():
@@ -347,6 +383,292 @@ def phase_small_reference():
         raise RuntimeError("the cuda chain disagrees with the CPU reference")
 
 
+def _check_chain_result(res, launches):
+    """The checks phases 3 and 4 share; returns the two legs' peaks."""
+    import torch
+
+    r, v = res.resynth, res.vocoded
+    peak_r = float(r.abs().max())
+    peak_v = float(v.abs().max())
+    if launches <= 0:
+        raise RuntimeError("the chain launched the voice-bank kernel no time")
+    if res.n_frames != 665:
+        raise RuntimeError(f"n_frames {res.n_frames} != 665")
+    if not (bool(torch.isfinite(r).all()) and bool(torch.isfinite(v).all())):
+        raise RuntimeError("non-finite chain output")
+    if not (peak_r > 1e-3 and peak_v > 1e-3):
+        raise RuntimeError(f"a chain leg is silent: {peak_r}, {peak_v}")
+    if r.dim() != 2 or r.shape[1] != 2:
+        raise RuntimeError(f"resynth shape {tuple(r.shape)} is not (T, 2)")
+    return peak_r, peak_v
+
+
+def phase_device_chain(card: str) -> int:
+    """Bench-width device-tracker chain on cuda; returns the kernel
+    launches of its first timed run."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import chain
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+
+    n = int(SR * SECONDS)
+    sch, cfg = make_synth_workload(SR, n)
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
+
+    def run(timings=None):
+        res = chain.run_offline_chain_device(bank, n, rcfg, vparams, carrier,
+                                             block_size=cfg.block_size,
+                                             device="cuda", timings=timings)
+        torch.cuda.synchronize()
+        return res
+
+    t0 = time.perf_counter()
+    run()
+    print(f"[device chain] first run {time.perf_counter() - t0:.3f} s")
+    walls = []
+    for i in range(5):
+        if i == 0:
+            cv.LAUNCHES = 0
+            syncs = tdt.HOST_SYNCS
+        t0 = time.perf_counter()
+        res = run()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = cv.LAUNCHES
+            syncs = tdt.HOST_SYNCS - syncs
+    wall = statistics.median(walls)
+    peak_r, peak_v = _check_chain_result(res, launches)
+    print(f"[device chain] tracker={res.tracker} n_frames={res.n_frames} "
+          f"dropped={int(res.dropped)} resynth {tuple(res.resynth.shape)} "
+          f"vocoded {tuple(res.vocoded.shape)} peaks {peak_r:.4f} / {peak_v:.4f} "
+          f"launches={launches} host synchronisations per chain={syncs}")
+    print(f"[device chain] warm wall per render: median {wall * 1e3:.3f} ms, "
+          f"max {max(walls) * 1e3:.3f} ms of {len(walls)} runs "
+          f"({', '.join(f'{w * 1e3:.3f}' for w in walls)} ms), "
+          f"realtime factor {SECONDS / wall:.1f}x on {card}")
+    if syncs != 1:
+        raise RuntimeError(f"{syncs} tracker host synchronisations per chain, expected 1")
+    # the program the JAX headline times: staged once, step() back to back
+    step, _ = chain.prepare_offline_chain_device(bank, n, rcfg, vparams, carrier,
+                                                 block_size=cfg.block_size,
+                                                 device="cuda")
+
+    def run_step():
+        out = step()
+        torch.cuda.synchronize()
+        return out
+
+    run_step()
+    step_walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run_step()
+        step_walls.append(time.perf_counter() - t0)
+    print(f"[device chain] step() alone (arguments staged once): median "
+          f"{statistics.median(step_walls) * 1e3:.3f} ms of 5 runs "
+          f"({', '.join(f'{w * 1e3:.3f}' for w in step_walls)} ms) on {card}")
+    print(f"[device chain] synchronising calls torch reports (sync debug "
+          f"mode): per chain {_reported_syncs(run)}; per step() "
+          f"{_reported_syncs(run_step)}")
+    _profile_chain(run, tag="device ")
+    return launches
+
+
+def _reported_syncs(run) -> str:
+    """Diagnostic: the synchronising CUDA calls torch's sync debug mode
+    reports over one run, with the lines that made them (the explicit
+    torch.cuda.synchronize that ends a run is not among them)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    hits = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    where = sorted({str(w.filename).rsplit("/", 1)[-1] + f":{w.lineno}" for w in hits})
+    return f"{len(hits)} ({', '.join(where) or 'none'})"
+
+
+def _dispatched_ops(run) -> int:
+    """Diagnostic: the ATen ops one run dispatches, views included (a
+    TorchDispatchMode that counts and forwards every call)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    count = Count()
+    with count:
+        run()
+    return count.n
+
+
+def headline_tracker_inputs(n, sch, cfg, dev):
+    """The device chain's tracker inputs, staged as
+    chain.prepare_offline_chain_device stages them: the peaks of its
+    _fused_analyze_vocode and the tracker's arrays (loudness tables, draw
+    pools), its keywords (autotune arrays included) and the render
+    config."""
+    from cpp_audio_tpu_torch.analysis import chain, resynth
+    from cpp_audio_tpu_torch.models import voicebank
+
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
+    args, statics = voicebank.prepare_bank_arrays(bank, n, cfg.block_size,
+                                                  rcfg.dtype, device=dev)
+    (window, bm_car, rows), av_kw = chain._analyze_vocode_inputs(n, rcfg, vparams, dev)
+    freq, mag, _mix = chain._fused_analyze_vocode(
+        *args, window, chain._carrier_tensor(carrier, n, rcfg, dev), bm_car,
+        rows, **statics, **av_kw)
+    render = resynth._render_config(rcfg)
+    arrays, kw = chain._tracker_inputs(rcfg, render, int(freq.shape[0]), None,
+                                       freq.dtype, dev)
+    return (freq, mag, *arrays), kw, render
+
+
+def phase_scan_fallback():
+    """The tracker's two paths on the headline peaks on cuda: the
+    violation flag of the frame-parallel path (must be false, as the JAX
+    headline's), one timed call of each path, and their renders held at
+    max|diff|/peak < 2e-3."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+    from cpp_audio_tpu_torch.models import resynth_bank
+
+    n = int(SR * SECONDS)
+    sch, cfg = make_synth_workload(SR, n)
+    inputs, kw, render = headline_tracker_inputs(n, sch, cfg, "cuda")
+    freq, mag, loud_p, loud_s, pan, phase = inputs
+    tpitch, volume, order, _k = tdt._prep_lanes(freq, mag, loud_p, loud_s,
+                                                kw["autotune_arrays"], kw)
+    defaults = tdt._default_row(freq.dtype, freq.device)
+    _table, viol = tdt._parallel_tables(tpitch, volume, order, freq.shape[0],
+                                        pan, phase, defaults, kw)
+    valid = torch.isfinite(tpitch[:freq.shape[0]])
+    print(f"[tracker] headline peaks {tuple(freq.shape)}: lanes {tpitch.shape[-1]}, "
+          f"tuned pitches per frame max {int(valid.sum(-1).max())} "
+          f"mean {float(valid.sum(-1).float().mean()):.1f}; frame-parallel "
+          f"violation flag {bool(viol)}")
+    if bool(viol) or not kw["min_volume"] > 0:
+        raise RuntimeError("the headline tracker did not take the frame-parallel path")
+
+    def build(force_scan):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table, dropped = tdt.build_tables_device(
+            *inputs, device="cuda", _force_scan=force_scan, **kw)
+        torch.cuda.synchronize()
+        return table, int(dropped), time.perf_counter() - t0
+
+    runs = [build(False) for _ in range(5)]
+    par, d_par, _ = runs[-1]
+    t_par = statistics.median(r[2] for r in runs)
+    scan, d_scan, t_scan = build(True)
+    outs = [resynth_bank._render_slots(t, stride=render.stride,
+                                       dtype="float32").reshape(-1, 2)
+            for t in (par, scan)]
+    peak = float(outs[0].abs().max())
+    rel = float((outs[1] - outs[0]).abs().max()) / max(peak, 1e-9)
+    print(f"[scan fallback] frame loop {t_scan * 1e3:.3f} ms over "
+          f"{kw['total_frames']} frames (one synchronised call), frame-parallel "
+          f"{t_par * 1e3:.3f} ms (median of 5); dropped {d_scan} / {d_par}; "
+          f"renders max|diff|/peak {rel:.3e} (peak {peak:.4f})")
+    print(f"[scan fallback] synchronising calls torch reports (sync debug "
+          f"mode): frame-parallel {_reported_syncs(lambda: build(False))}; "
+          f"frame loop {_reported_syncs(lambda: build(True))}")
+    print(f"[scan fallback] ATen ops dispatched (views included): frame-parallel "
+          f"{_dispatched_ops(lambda: build(False))}, frame loop "
+          f"{_dispatched_ops(lambda: build(True))}")
+    if not (d_scan == d_par == 0 and peak > 1e-3 and rel < 2e-3):
+        raise RuntimeError("the scan fallback disagrees with the frame-parallel tracker")
+
+
+def autotune_test_signal(sr):
+    """tests/test_device_tracker_autotune.py:_signal: four Hann-windowed
+    sines over 2 s, the signal of the JAX package's device-vs-host autotune
+    test."""
+    n = sr * 2
+    t = np.arange(n) / sr
+    sig = np.zeros(n)
+    for f0, s0, s1, a in [(441.3, 0.1, 1.2, 0.4), (333.7, 0.3, 1.8, 0.3),
+                          (552.1, 0.8, 1.9, 0.25), (221.9, 0.0, 0.7, 0.3)]:
+        i0, i1 = int(s0 * sr), int(s1 * sr)
+        sig[i0:i1] += a * np.hanning(i1 - i0) * np.sin(
+            2 * np.pi * f0 * t[: i1 - i0])
+    return sig
+
+
+def _hold_resynth(name, other, g, o, bar=2e-3) -> None:
+    peak = max(float(o.abs().max()), 1e-9)
+    dr = float((g.cpu() - o.cpu()).abs().max()) / peak
+    print(f"[device reference] {name}: cuda device chain vs {other}: resynth "
+          f"max|diff|/peak {dr:.3e} (peak {peak:.4f})")
+    if not (g.shape == o.shape and peak > 1e-3 and dr < bar):
+        raise RuntimeError(f"{name}: the cuda device chain disagrees with {other}")
+
+
+def phase_device_reference():
+    """The 2 s device chain on tests/test_chain.py's workload on cuda
+    against the same chain on the CPU and against the host-tracker chain on
+    cuda (vocoded atol 1e-4, resynth max|diff|/peak < 2e-3,
+    tests/test_chain.py:80-83); then the "scale_major" autotune config
+    (use_autotune=True, seed 5) on the JAX package's autotune test signal
+    (tests/test_device_tracker_autotune.py:18-68): the device path of
+    resynthesize on cuda against the CPU and against the host (python)
+    tracker on cuda, at the same resynth bar. (Autotune snaps pitches onto a
+    semitone grid, and the tracker matches a pitch to the previous frame's
+    within +-max_track_pitches = 1 semitone: where a snapped pitch lands one
+    float32 ulp off the grid, that window's edge falls exactly on a
+    neighbouring grid pitch, and the card and the CPU, whose float32 peaks
+    differ in the last bits, may continue different notes. On the chain
+    workload that is what happens, so the autotune config is held on the
+    signal its JAX test uses.)"""
+    import dataclasses
+
+    from cpp_audio_tpu_torch.analysis import chain, resynth
+
+    n = 2 * SR
+    sch, cfg = make_chain_test_workload(SR, n)
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
+    args = (bank, n, rcfg, vparams, carrier)
+    g = chain.run_offline_chain_device(*args, block_size=1 << 13, device="cuda")
+    others = {
+        "cpu device chain": chain.run_offline_chain_device(
+            *args, block_size=1 << 13, device="cpu"),
+        "cuda host chain": chain.run_offline_chain(
+            *args, block_size=1 << 13, device="cuda")}
+    for other, o in others.items():
+        if g.n_frames != o.n_frames or int(g.dropped) != 0:
+            raise RuntimeError(f"the cuda device chain and {other} disagree on frames")
+        dv = float((g.vocoded.cpu() - o.vocoded.cpu()).abs().max())
+        print(f"[device reference] default, 2 s chain: vocoded max|diff| {dv:.3e} "
+              f"against {other}")
+        if not dv <= 1e-4:
+            raise RuntimeError(f"the cuda device chain's vocoder disagrees with {other}")
+        _hold_resynth("default, 2 s chain", other, g.resynth, o.resynth)
+
+    sig = autotune_test_signal(SR)
+    acfg = dataclasses.replace(rcfg, use_autotune=True, seed=5, analysis_volume=1.0)
+    g = resynth.resynthesize(sig, acfg, implementation="device", device="cuda")
+    for other, o in (
+            ("cpu device path", resynth.resynthesize(
+                sig, acfg, implementation="device", device="cpu")),
+            ("cuda python tracker", resynth.resynthesize(
+                sig, acfg, implementation="python", device="cuda"))):
+        n_o = min(g.shape[0], o.shape[0])
+        _hold_resynth("autotune scale_major, 2 s signal", other, g[:n_o], o[:n_o])
+
+
 def main() -> int:
     try:
         card = card_line()
@@ -365,6 +687,9 @@ def main() -> int:
         measured = phase_kernel_vs_plain()
         launches = phase_chain(card)
         phase_small_reference()
+        launches_device = phase_device_chain(card)
+        phase_scan_fallback()
+        phase_device_reference()
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1
@@ -374,6 +699,7 @@ def main() -> int:
         "source": "cpp_audio_tpu_torch/csrc/voicebank.cu",
         "replaces": "cpp_audio_tpu/ops/pallas_voicebank.py:30",
         "launches": launches,
+        "launches_device_chain": launches_device,
         **measured,
     }]}
     print(json.dumps(kernels))

@@ -2,16 +2,24 @@
 vocoder of the synth's mixdown.
 
     voice-bank blocks (CUDA kernel) -> mono mixdown -> sliding Gaussian STFT
-    -> top-k peaks -> host tracker (C++ pitchpipe_run_offline, or the Python
-    tracker) -> slot table -> tracked-note render; and, from the same
-    mixdown, the O(n) vocoder against a carrier.
+    -> top-k peaks -> tracker -> slot table -> tracked-note render; and,
+    from the same mixdown, the O(n) vocoder against a carrier.
 
-Port of cpp_audio_tpu/analysis/chain.py `run_offline_chain` (:255-324), with
-the same routing: the native table packer when the library is available
-(and the draws are sequential, with reference harmonize semantics), the
-Python tracker otherwise. Only (frames, k) peak arrays cross to the host.
-The single-dispatch device-tracker chain (run_offline_chain_device) is not
-ported yet (ROADMAP A7).
+Port of cpp_audio_tpu/analysis/chain.py, with its two trackers:
+  * run_offline_chain (:255-324): the (frames, k) peaks cross to the host
+    tracker — the native table packer (C++ pitchpipe_run_offline) when the
+    library is available and the draws are sequential, with reference
+    harmonize semantics; the Python tracker otherwise — and the slot table
+    crosses back;
+  * the single-dispatch chain (prepare_offline_chain_device, :453-592;
+    run_offline_chain_device, :716-736; resynthesize_signal_device,
+    :751-815; prepare_offline_chain_device_batch, :818-936): the device
+    tracker (analysis/device_tracker.py) builds the table where the peaks
+    are, so nothing crosses to the host but the tracker's violation flag.
+    Eager PyTorch dispatches op by op; "single dispatch" names the JAX
+    program this mirrors, not a property of the port. The float32 branch
+    only: the df32 fidelity chain (dtype "df32") is ROADMAP A9.
+Both share `_fused_analyze_vocode` (synth, analysis, vocoder).
 
 Reference scope: RtResynth's offline job loop (source/rt.resynth.lib.cpp:
 1185-1235 — input -> analysis -> resynth synth + vocoder).
@@ -28,6 +36,8 @@ import torch
 from ..device import dtype_of
 from ..models import resynth_bank, voicebank
 from ..ops import stft as stft_ops
+from . import autotune as at
+from . import device_tracker
 from . import resynth as resynth_mod
 from . import vocoder as vocoder_mod
 
@@ -37,7 +47,105 @@ class OfflineChainResult:
     resynth: torch.Tensor   # (samples, 2) stereo resynthesis
     vocoded: torch.Tensor   # (m,) vocoder mix of the mixdown
     n_frames: int
-    tracker: str = "native"  # which host tracker built the slot table
+    tracker: str = "native"  # which tracker built the slot table
+    dropped: object = 0     # dropped-NoteOn count (a device scalar on the device path)
+
+
+def _no_stage(name: str) -> None:
+    """Stage marker that measures nothing."""
+
+
+def _stage_clock(dev: torch.device, timings: dict | None):
+    """stage(name) marker: with a `timings` dict, synchronise the device and
+    store the wall seconds since the previous marker under `name` (a
+    measurement aid: the synchronisations cost overlap)."""
+    if timings is None:
+        return _no_stage
+    clock = [time.perf_counter()]
+
+    def stage(name):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        timings[name] = now - clock[0]
+        clock[0] = now
+    return stage
+
+
+def _analyze_vocode_inputs(n_samples: int, rconfig: resynth_mod.ResynthConfig,
+                           vparams: vocoder_mod.VocoderParams, dev):
+    """(window, band matrix, modulator rows) tensors on `dev`, and the
+    static keywords of _fused_analyze_vocode."""
+    wdt = dtype_of(rconfig.dtype)
+    sr = rconfig.sample_rate
+    S = vparams.stride
+    W = vparams.modulator_window
+    car_fft = stft_ops.fft_length_for(2 * S)
+    edges = vparams.band_freqs()
+    n_mod_frames = max(0, (n_samples - W) // S + 1)
+    window = torch.as_tensor(
+        stft_ops.gaussian_window(rconfig.window_size, sigmas=4.0),
+        dtype=wdt, device=dev)
+    bm_car = torch.as_tensor(
+        vocoder_mod._band_matrix(edges, car_fft // 2 + 1, sr / car_fft),
+        dtype=wdt, device=dev)
+    rows = torch.as_tensor(
+        vocoder_mod.modulator_alignment_rows(n_samples, vparams, n_mod_frames),
+        device=dev)
+    kw = dict(n=n_samples, window_size=rconfig.window_size,
+              stride=rconfig.stride,
+              fft_len=stft_ops.fft_length_for(rconfig.window_size),
+              k=rconfig.max_voices + 1, sample_rate=sr, mod_window=W,
+              voc_stride=S, car_fft=car_fft, n_mod_frames=n_mod_frames,
+              vol_mod=float(vparams.volume_modulator),
+              vol_car=float(vparams.volume_carrier),
+              vol_voc=float(vparams.volume_vocoded),
+              edges=tuple(float(e) for e in edges),
+              mod_shape=vparams.modulator_window_shape)
+    return (window, bm_car, rows), kw
+
+
+def _carrier_tensor(carrier, n_samples: int, rconfig, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(carrier), dtype=dtype_of(rconfig.dtype),
+                           device=dev)[..., :n_samples]
+
+
+def _fused_analyze_vocode(fp, ip, up, gains, codes, window, carrier, bm_car,
+                          rows, *, n: int, block_size: int, n_blocks: int,
+                          window_size: int, stride: int, fft_len: int, k: int,
+                          sample_rate: int, mod_window: int, voc_stride: int,
+                          car_fft: int, n_mod_frames: int, vol_mod: float,
+                          vol_car: float, vol_voc: float, edges: tuple,
+                          mod_shape: str = "gaussian", stage=_no_stage):
+    """Synth -> mono mixdown -> STFT top-k peaks, and the vocoder of the
+    mixdown (JAX chain.py:46-95). Returns (freq, mag_db, vocoder mix);
+    `stage` marks "synth", "analysis" and "vocoder"."""
+    # 1. synth render (dense tables: the kernel picks each tile's live
+    # rows itself) + mono mixdown
+    out = voicebank.voicebank_blocks_impl(fp, ip, up, gains, codes,
+                                          block_size=block_size,
+                                          n_blocks=n_blocks)
+    mono = out.reshape(-1, out.shape[-1])[:n].sum(dim=1)
+    stage("synth")
+
+    # 2. analysis: sliding Gaussian STFT -> top-k peaks
+    sq = stft_ops._stft_sqmag(mono, window, window_size=window_size,
+                              stride=stride, fft_length=fft_len)
+    freq, mag = stft_ops._top_peaks(sq, sample_rate=sample_rate,
+                                    fft_length=fft_len, k=k)
+    stage("analysis")
+
+    # 3. vocoder of the mixdown against the carrier
+    amps = vocoder_mod._modulator_band_amps_fast(
+        mono, edges, window=mod_window, stride=voc_stride,
+        n_frames=n_mod_frames, sample_rate=sample_rate, shape=mod_shape)
+    vocoded = vocoder_mod._carrier_vocode(carrier, amps[rows], bm_car,
+                                          stride=voc_stride, fft_len=car_fft)
+    out_len = vocoded.shape[0]
+    mix = (vol_voc * vocoded + vol_mod * mono[:out_len]
+           + vol_car * carrier[:out_len])
+    stage("vocoder")
+    return freq, mag, mix
 
 
 def run_offline_chain(bank: voicebank.VoiceBank, n_samples: int,
@@ -45,11 +153,12 @@ def run_offline_chain(bank: voicebank.VoiceBank, n_samples: int,
                       vparams: vocoder_mod.VocoderParams, carrier,
                       *, block_size: int = 1 << 15, device="cuda",
                       timings: dict | None = None) -> OfflineChainResult:
-    """Render `bank`, resynthesize its mono mixdown, and vocode it on
-    `device`. The synth leg renders the dense (V, ·) voice tables through
-    ops/cuda_voicebank.render_blocks: the CUDA kernel for CUDA tensors,
-    which picks each sample tile's live rows itself, so no per-block
-    compaction (and no host round trip of the tables) precedes it.
+    """Render `bank`, resynthesize its mono mixdown with the HOST tracker,
+    and vocode it, on `device`. The synth leg renders the dense (V, ·)
+    voice tables through ops/cuda_voicebank.render_blocks: the CUDA kernel
+    for CUDA tensors, which picks each sample tile's live rows itself, so
+    no per-block compaction (and no host round trip of the tables)
+    precedes it.
 
     timings: when a dict is given, the device is synchronised after each
     stage and the stage's wall seconds are stored under "synth",
@@ -58,62 +167,14 @@ def run_offline_chain(bank: voicebank.VoiceBank, n_samples: int,
     from .. import native as nat
 
     dev = torch.device(device)
-    clock = [time.perf_counter()]
-
-    def stage(name):
-        if timings is None:
-            return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        timings[name] = now - clock[0]
-        clock[0] = now
-
-    sr = rconfig.sample_rate
-    dtype = rconfig.dtype
-    wdt = dtype_of(dtype)
+    stage = _stage_clock(dev, timings)
     args, statics = voicebank.prepare_bank_arrays(bank, n_samples, block_size,
-                                                  dtype, device=dev)
-
-    # 1. synth render + mono mixdown
-    out = voicebank.voicebank_blocks_impl(*args, **statics)
-    mono = out.reshape(-1, out.shape[-1])[:n_samples].sum(dim=1)
-    stage("synth")
-
-    # 2. analysis: sliding Gaussian STFT -> top-k peaks
-    window = torch.as_tensor(stft_ops.gaussian_window(rconfig.window_size,
-                                                      sigmas=4.0),
-                             dtype=wdt, device=dev)
-    fft_len = stft_ops.fft_length_for(rconfig.window_size)
-    sq = stft_ops._stft_sqmag(mono, window, window_size=rconfig.window_size,
-                              stride=rconfig.stride, fft_length=fft_len)
-    freq, mag = stft_ops._top_peaks(sq, sample_rate=sr, fft_length=fft_len,
-                                    k=rconfig.max_voices + 1)
-    stage("analysis")
-
-    # 3. vocoder of the mixdown against the carrier
-    S = vparams.stride
-    W = vparams.modulator_window
-    car_fft = stft_ops.fft_length_for(2 * S)
-    edges = vparams.band_freqs()
-    bm_car = torch.as_tensor(
-        vocoder_mod._band_matrix(edges, car_fft // 2 + 1, sr / car_fft),
-        dtype=wdt, device=dev)
-    n_mod_frames = max(0, (n_samples - W) // S + 1)
-    rows = torch.as_tensor(
-        vocoder_mod.modulator_alignment_rows(n_samples, vparams, n_mod_frames),
-        device=dev)
-    carrier_dev = torch.as_tensor(carrier, dtype=wdt, device=dev)[:n_samples]
-    amps = vocoder_mod._modulator_band_amps_fast(
-        mono, edges, window=W, stride=S, n_frames=n_mod_frames,
-        sample_rate=sr, shape=vparams.modulator_window_shape)
-    vocoded = vocoder_mod._carrier_vocode(carrier_dev, amps[rows], bm_car,
-                                          stride=S, fft_len=car_fft)
-    out_len = vocoded.shape[0]
-    mix = (float(vparams.volume_vocoded) * vocoded
-           + float(vparams.volume_modulator) * mono[:out_len]
-           + float(vparams.volume_carrier) * carrier_dev[:out_len])
-    stage("vocoder")
+                                                  rconfig.dtype, device=dev)
+    (window, bm_car, rows), av_kw = _analyze_vocode_inputs(n_samples, rconfig,
+                                                           vparams, dev)
+    freq, mag, mix = _fused_analyze_vocode(
+        *args, window, _carrier_tensor(carrier, n_samples, rconfig, dev),
+        bm_car, rows, stage=stage, **statics, **av_kw)
 
     # 4. host: tracking + slot table, then the tracked-note render
     freq_h = freq.cpu().numpy()
@@ -138,3 +199,277 @@ def run_offline_chain(bank: voicebank.VoiceBank, n_samples: int,
     stage("render")
     return OfflineChainResult(resynth=stereo, vocoded=mix, n_frames=n_frames,
                               tracker=tracker)
+
+
+def autotune_device_arrays(rconfig, dtype=torch.float32, *, device="cuda"):
+    """Numeric autotune tables as tensors for the device tracker:
+    (root (), scale (8,), equidistant (7,), allowed (A,)). Zeros for the
+    unused kind (analysis/autotune.autotune_tables provides the values,
+    reference rt.resynth.lib.autotune.cpp:89-142 / rt.resynth.lib.cpp:
+    1761-1873). Returns (kind, arrays)."""
+    tables = at.autotune_tables(use_autotune=rconfig.use_autotune,
+                                **rconfig.autotune_kwargs)
+    root, scale, equid, allowed = device_tracker.default_autotune_arrays(
+        dtype, device)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,  # noqa: E731
+                                     device=device)
+    if tables["kind"] == "scale":
+        root = as_t(tables["root_pitch"])
+        scale = as_t(tables["scale"])
+        equid = as_t(tables["equidistant"])
+    elif tables["kind"] == "allowed":
+        allowed = as_t(tables["allowed"])
+    return tables["kind"], (root, scale, equid, allowed)
+
+
+def tracker_config_kwargs(rconfig, rcfg) -> dict:
+    """The device tracker's config-derived keywords (shared by every
+    device-tracker path; the context-dependent total_frames / stride /
+    sample_rate keys are supplied by each caller)."""
+    a = rcfg.ahdsr
+    at_kind = at.autotune_tables(use_autotune=rconfig.use_autotune,
+                                 **rconfig.autotune_kwargs)["kind"]
+    return dict(
+        harmonize_pre=rconfig.pitch_harmonize_pre_autotune,
+        harmonize_post=rconfig.pitch_harmonize_post_autotune,
+        harmonize_semantics=rconfig.harmonize_semantics,
+        draw_indexing=rconfig.draw_indexing,
+        autotune_kind=at_kind,
+        autotune_max_pitch=rconfig.autotune_max_pitch,
+        autotune_tolerance=rconfig.autotune_tolerance_pitches,
+        max_voices=rconfig.max_voices, n_slots=rcfg.n_slots,
+        nearby_distance=rconfig.nearby_distance_tones,
+        min_volume=rconfig.min_volume,
+        max_track_pitches=rconfig.max_track_pitches,
+        pitch_method={"INTERVAL_CENTER": 0, "MAX_VOLUME": 1,
+                      "PONDERATE_BY_VOLUME": 2}[rconfig.pitch_method.name],
+        volume_method={"MAX_VOLUME": 0, "SUM_VOLUMES": 1}[
+            rconfig.volume_method.name],
+        analysis_volume=rconfig.analysis_volume,
+        shift_pre=rconfig.pitch_shift_pre_autotune,
+        shift_post=rconfig.pitch_shift_post_autotune,
+        stereo_spread=rconfig.stereo_spread,
+        attack=float(np.max(np.asarray(a.attack))),
+        hold=float(np.max(np.asarray(a.hold))),
+        decay=float(np.max(np.asarray(a.decay))),
+        sustain=float(np.asarray(a.sustain)),
+        release=float(np.max(np.asarray(a.release))))
+
+
+def _device_dtype(rconfig) -> torch.dtype:
+    if rconfig.dtype == "df32":
+        raise NotImplementedError(
+            "the df32 fidelity chain (device_tracker df32 tracker, "
+            "_fused_single_dispatch_df) is not ported yet (ROADMAP A9); use "
+            "dtype 'float32' or 'float64'")
+    return dtype_of(rconfig.dtype)
+
+
+def _n_frames(n_samples: int, rconfig) -> int:
+    return max(0, (n_samples - rconfig.window_size) // rconfig.stride + 1)
+
+
+def _tracker_inputs(rconfig, rcfg, n_frames: int, draws, wdt, dev):
+    """The device tracker's arrays on `dev` (loudness pitches, loudness SPL
+    at 60 phon, pan pool, phase pool) and its keywords, autotune arrays
+    included, for n_frames analysis frames. The pools go as float32 (the
+    tracker casts them to its working dtype), as in JAX chain.py:525-526,
+    :568-569; draws=None takes the pools that match the host tracker's RNG
+    sequence."""
+    from ..utils import loudness
+
+    if draws is None:
+        draws = resynth_mod.draw_pools(rconfig,
+                                       n_frames * rconfig.max_voices + 16)
+    li = loudness.phons_to_index(60.0)
+    arrays = (
+        torch.as_tensor(np.asarray(loudness.PITCHES), dtype=wdt, device=dev),
+        torch.as_tensor(np.asarray(loudness.ELVS[li]), dtype=wdt, device=dev),
+        *(torch.as_tensor(np.asarray(d), dtype=torch.float32, device=dev)
+          for d in draws))
+    _kind, at_arrays = autotune_device_arrays(rconfig, wdt, device=dev)
+    return arrays, _tracker_call_kwargs(rconfig, rcfg, n_frames, at_arrays)
+
+
+def _tracker_call_kwargs(rconfig, rcfg, n_frames: int, at_arrays) -> dict:
+    """build_tables_device's keywords for n_frames analysis frames and the
+    8-frame render tail (JAX chain.py:336-355)."""
+    return dict(total_frames=n_frames + 8, stride=rcfg.stride,
+                sample_rate=float(rconfig.sample_rate),
+                autotune_arrays=at_arrays,
+                **tracker_config_kwargs(rconfig, rcfg))
+
+
+def _fused_single_dispatch(bank_args, av_args, tracker_args, *, av_kw: dict,
+                           tr_kw: dict, dtype: str, stage=_no_stage):
+    """The whole offline chain on the device: synth -> STFT -> peaks ->
+    device tracker -> tracked-note render, plus the vocoder (JAX
+    chain.py:358-394). Returns (framed stereo (F, S, 2), vocoder mix,
+    dropped) tensors; `stage` marks the five stages."""
+    freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, stage=stage,
+                                           **av_kw)
+    table, dropped = device_tracker.build_tables_device(
+        freq, mag, *tracker_args, device=freq.device, **tr_kw)
+    stage("tracker")
+    # (F, S, 2): the JAX program's channel-major (2, F, S) was a TPU layout
+    out = resynth_bank._render_slots(table, stride=tr_kw["stride"], dtype=dtype)
+    stage("render")
+    return out, mix, dropped
+
+
+def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
+                                 rconfig: resynth_mod.ResynthConfig,
+                                 vparams: vocoder_mod.VocoderParams, carrier,
+                                 *, block_size: int = 1 << 15, draws=None,
+                                 device="cuda"):
+    """Stage the device-resident arguments of the single-dispatch chain on
+    `device` and return (step, n_frames): `step(stage=None)` runs synth ->
+    STFT -> peaks -> device tracker -> render + vocoder over them and
+    returns (stereo framed (F, S, 2), vocoder mix, dropped) tensors; the one
+    device value it reads on the host is the tracker's violation flag. Call
+    step() back to back to serve; flatten with assemble_framed_stereo.
+
+    draws: optional (pan_draws, phase_draws) pools; defaults to the numpy
+    pools matching the host tracker's RNG sequence.
+    """
+    dev = torch.device(device)
+    wdt = _device_dtype(rconfig)
+    bank_args, statics = voicebank.prepare_bank_arrays(
+        bank, n_samples, block_size, rconfig.dtype, device=dev)
+    (window, bm_car, rows), av_kw = _analyze_vocode_inputs(n_samples, rconfig,
+                                                           vparams, dev)
+    av_args = (window, _carrier_tensor(carrier, n_samples, rconfig, dev),
+               bm_car, rows)
+    n_frames = _n_frames(n_samples, rconfig)
+    tracker_args, tr_kw = _tracker_inputs(
+        rconfig, resynth_mod._render_config(rconfig), n_frames, draws, wdt, dev)
+    av_kw.update(statics)
+
+    def step(stage=_no_stage):
+        return _fused_single_dispatch(bank_args, av_args, tracker_args,
+                                      av_kw=av_kw, tr_kw=tr_kw,
+                                      dtype=rconfig.dtype, stage=stage)
+
+    return step, n_frames
+
+
+def assemble_framed_stereo(framed: torch.Tensor, start_sample: int) -> torch.Tensor:
+    """(F, S, C) framed render -> (start_sample + F*S, C): the flatten is a
+    view; only the leading-silence pad copies. (The JAX package's version
+    takes its channel-major (C, F, S) and returns (C, T) numpy.)"""
+    flat = framed.reshape(-1, framed.shape[-1])
+    return torch.nn.functional.pad(flat, (0, 0, start_sample, 0))
+
+
+def run_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
+                             rconfig: resynth_mod.ResynthConfig,
+                             vparams: vocoder_mod.VocoderParams, carrier,
+                             *, block_size: int = 1 << 15, draws=None,
+                             device="cuda",
+                             timings: dict | None = None) -> OfflineChainResult:
+    """The offline chain with the DEVICE tracker (analysis/device_tracker.py)
+    in place of the host pitch pipeline: synth, analysis, tracking, render
+    and vocoder all on `device`. Covers the reference's default config
+    space including autotune (scale/chord/intervals) and harmonize.
+    `resynth` is (T, 2), `dropped` a device scalar. timings: as in
+    run_offline_chain ("tracker" is the device tracker; "synth" includes
+    staging the arguments)."""
+    dev = torch.device(device)
+    stage = _stage_clock(dev, timings)
+    step, n_frames = prepare_offline_chain_device(
+        bank, n_samples, rconfig, vparams, carrier, block_size=block_size,
+        draws=draws, device=dev)
+    framed, mix, dropped = step(stage)
+    rcfg = resynth_mod._render_config(rconfig)
+    return OfflineChainResult(
+        resynth=assemble_framed_stereo(framed, rcfg.start_sample),
+        vocoded=mix, n_frames=n_frames, tracker="device", dropped=dropped)
+
+
+def _fused_resynth_from_signal(mono, window, tracker_args, *, tr_kw: dict,
+                               rconfig, start_sample: int):
+    """Analysis -> resynthesis of a PROVIDED mono signal (the rt.resynth.job
+    WAV path) on its device: STFT -> peaks -> device tracker -> render
+    (JAX chain.py:751-778). Returns ((T, 2) stereo, dropped)."""
+    fft_len = stft_ops.fft_length_for(rconfig.window_size)
+    sq = stft_ops._stft_sqmag(mono, window, window_size=rconfig.window_size,
+                              stride=rconfig.stride, fft_length=fft_len)
+    freq, mag = stft_ops._top_peaks(sq, sample_rate=rconfig.sample_rate,
+                                    fft_length=fft_len, k=rconfig.max_voices + 1)
+    table, dropped = device_tracker.build_tables_device(
+        freq, mag, *tracker_args, device=mono.device, **tr_kw)
+    out = resynth_bank._render_slots(table, stride=tr_kw["stride"],
+                                     dtype=rconfig.dtype)
+    return assemble_framed_stereo(out, start_sample), dropped
+
+
+def resynthesize_signal_device(signal, rconfig, *, device="cuda") -> torch.Tensor:
+    """Device-resident resynthesis of a mono signal on `device` (JAX
+    chain.py:781-815), covering autotune and harmonize configs. Returns the
+    (T, 2) stereo tensor."""
+    dev = torch.device(device)
+    wdt = _device_dtype(rconfig)
+    n = int(np.shape(signal)[0])
+    rcfg = resynth_mod._render_config(rconfig)
+    tracker_args, tr_kw = _tracker_inputs(rconfig, rcfg, _n_frames(n, rconfig),
+                                          None, wdt, dev)
+    stereo, _dropped = _fused_resynth_from_signal(
+        torch.as_tensor(np.asarray(signal), dtype=wdt, device=dev),
+        torch.as_tensor(stft_ops.gaussian_window(rconfig.window_size,
+                                                 sigmas=4.0),
+                        dtype=wdt, device=dev),
+        tracker_args, tr_kw=tr_kw, rconfig=rconfig,
+        start_sample=rcfg.start_sample)
+    return stereo
+
+
+def prepare_offline_chain_device_batch(banks, n_samples: int,
+                                       rconfig: resynth_mod.ResynthConfig,
+                                       vparams: vocoder_mod.VocoderParams,
+                                       carrier, *, block_size: int = 1 << 15,
+                                       draws=None, device="cuda"):
+    """Batched serving: B independent jobs per step on `device`.
+
+    The same chain as prepare_offline_chain_device per job, with the
+    tracker batched (device_tracker.build_tables_device_batch: one
+    frame-local pass over every job's frames, the violation hoisted over
+    the batch). The JAX program's 64-slot render split and its lax.cond
+    (JAX chain.py:915-928) worked around conds under vmap; the port renders
+    each job's table whole.
+
+    banks: list of VoiceBank (same n_samples/config per job).
+    carrier: (n,) shared or (B, n) per-job.
+    Returns (step, n_frames); step() -> (stereo (B, T, 2), vocoded (B, m),
+    dropped (B,)).
+    """
+    dev = torch.device(device)
+    wdt = _device_dtype(rconfig)
+    jobs = [voicebank.prepare_bank_arrays(bank, n_samples, block_size,
+                                          rconfig.dtype, device=dev)
+            for bank in banks]
+    (window, bm_car, rows), av_kw = _analyze_vocode_inputs(n_samples, rconfig,
+                                                           vparams, dev)
+    carrier_dev = _carrier_tensor(carrier, n_samples, rconfig, dev)
+    if carrier_dev.dim() == 1:
+        carrier_dev = carrier_dev.expand(len(banks), -1)
+    n_frames = _n_frames(n_samples, rconfig)
+    rcfg = resynth_mod._render_config(rconfig)
+    tracker_args, tr_kw = _tracker_inputs(rconfig, rcfg, n_frames, draws, wdt,
+                                          dev)
+
+    def step():
+        outs = [_fused_analyze_vocode(*args, window, carrier_dev[b], bm_car,
+                                      rows, **statics, **av_kw)
+                for b, (args, statics) in enumerate(jobs)]
+        freq, mag, mix = (torch.stack(x) for x in zip(*outs))
+        tables, dropped = device_tracker.build_tables_device_batch(
+            freq, mag, *tracker_args, device=dev, **tr_kw)
+        stereo = torch.stack([
+            assemble_framed_stereo(
+                resynth_bank._render_slots(t, stride=rcfg.stride,
+                                           dtype=rconfig.dtype),
+                rcfg.start_sample)
+            for t in tables])
+        return stereo, mix, dropped
+
+    return step, n_frames

@@ -13,10 +13,13 @@ window ending at sample W + r*stride is full, and its NoteOn/Change/Off apply
 from that sample on (PeriodicFFT::feed/onFullBuffer,
 rt.resynth.lib.periodicfft.cpp:55-180).
 
-Port of cpp_audio_tpu/analysis/resynth.py. The tracker runs on the host in
-both packages and draws its pans and phases from numpy RNGs, so both draw
-the same values. The device tracker (ROADMAP A7) is not ported yet:
-`resynthesize` takes implementation="native" or "python".
+Port of cpp_audio_tpu/analysis/resynth.py. The host trackers draw their
+pans and phases from numpy RNGs, and the device tracker
+(analysis/device_tracker.py) reads the same draws from pools
+(`draw_pools`), so every tracker of both packages draws the same values.
+`resynthesize` routes as the JAX package does (implementation="auto" by
+default: the device tracker, or the native one for reference-semantics
+harmonize configs).
 """
 
 from __future__ import annotations
@@ -466,21 +469,34 @@ def build_tables_native(freq, mag_db, config: ResynthConfig, total_frames: int,
 
 
 def resynthesize(signal, config: ResynthConfig, *,
-                 implementation: str = "native",
+                 implementation: str = "auto",
                  device="cuda") -> torch.Tensor:
     """Full offline chain: mono signal -> stereo resynthesis (T, 2) tensor.
 
-    implementation: "native" takes the fused C++ table packer when the
-    library is available and the draws are sequential (else the tracker
-    below); "python" forces the pure-Python tracker. "auto" and "device"
-    (the JAX package's single-dispatch device tracker) are not ported yet.
+    implementation: "auto" takes the device-resident chain
+    (chain.resynthesize_signal_device: frame-parallel tracker, incl.
+    autotune/harmonize configs), except for reference-semantics harmonize
+    configs, which go to "native"; "device" forces the device tracker;
+    "native" takes the fused C++ table packer when the library is available
+    and the draws are sequential (else the Python tracker); "python" forces
+    the pure-Python tracker.
     """
-    if implementation in ("auto", "device"):
-        raise NotImplementedError(
-            f"implementation={implementation!r} needs the device tracker, "
-            "which is not ported yet (ROADMAP A7); use 'native' or 'python'")
-    if implementation not in ("native", "python"):
+    if implementation not in ("auto", "device", "native", "python"):
         raise ValueError(f"unknown implementation {implementation!r}")
+    if (implementation == "auto"
+            and config.harmonize_semantics == "reference"
+            and (config.pitch_harmonize_pre_autotune != 0.0
+                 or config.pitch_harmonize_post_autotune != 0.0)):
+        # perf routing: the device tracker DOES implement reference probe
+        # semantics (device_tracker._harmonize_lanes_reference), but as a
+        # sequential lane loop; the native tracker is faster for these
+        # configs. Explicit implementation="device" still gets the exact
+        # device path.
+        implementation = "native"
+    if implementation in ("device", "auto"):
+        from . import chain
+
+        return chain.resynthesize_signal_device(signal, config, device=device)
     rcfg = _render_config(config)
     if implementation == "native":
         from .. import native as nat

@@ -85,10 +85,20 @@ def test_resynthesize_matches_jax(implementation):
 
 
 @pytest.mark.parametrize("implementation", ["auto", "device"])
-def test_device_tracker_not_ported_yet(implementation):
-    with pytest.raises(NotImplementedError, match="A7"):
-        tresynth.resynthesize(np.zeros(SR), tresynth.ResynthConfig(),
-                              implementation=implementation, device="cpu")
+def test_resynthesize_device_matches_jax(implementation):
+    """Both packages route "auto" (the default) and "device" to their
+    device tracker chain (chain.resynthesize_signal_device)."""
+    n = 2 * SR
+    sig = _tone_signal(n)
+    kw = dict(sample_rate=SR, analysis_volume=1.0, dtype="float32")
+    ref = np.asarray(resynth.resynthesize(sig, resynth.ResynthConfig(**kw),
+                                          implementation=implementation))
+    got = tresynth.resynthesize(sig, tresynth.ResynthConfig(**kw),
+                                implementation=implementation, device="cpu").numpy()
+    assert got.shape == ref.shape and got.shape[1] == 2
+    peak = float(np.abs(ref).max())
+    assert peak > 1e-3
+    assert float(np.abs(got - ref).max()) / peak < 2e-3
 
 
 def test_tracker_events_match_jax():
