@@ -44,6 +44,16 @@ Phases (any failure exits non-zero and prints no result):
      1e-4, resynth max|diff|/peak < 2e-3); then use_autotune=True on the JAX
      autotune test's signal through resynthesize(implementation="device")
      on cuda, against the CPU and the host tracker.
+  7. df chain: the fidelity chain (dtype "df32", hybrid analysis: float32
+     synth and vocoder, float64 peaks, tracker and phase advance) at the
+     headline width on cuda, driven and checked as in 4 (1 kernel launch
+     per chain, float32 resynth); the tracker's violation flag on its own
+     float64 peaks (false); the "ladder" analysis once, its wall.
+  8. df fidelity, 12 s of the headline workload, bench.py's rows
+     (:282-394) with the float64 reference on device="cpu": same peaks
+     <= -80 dB, vocoded <= -120 dB, e2e resynth printed, note_e2e_pass.
+  9. df reference, 2 s: the df chain on cuda against the CPU, at the bars
+     of 6.
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -272,13 +282,13 @@ def phase_kernel_vs_plain() -> dict:
             "library_ms": None, "live_voice_samples": live}
 
 
-def _chain_inputs(n, sch, cfg):
+def _chain_inputs(n, sch, cfg, dtype="float32"):
     from cpp_audio_tpu_torch.analysis import resynth, vocoder
     from cpp_audio_tpu_torch.models import sine_synth
 
     bank = sine_synth.bank_from_schedule(sch, cfg)
     rcfg = resynth.ResynthConfig(sample_rate=SR, analysis_volume=1.0,
-                                 dtype="float32")
+                                 dtype=dtype)
     vparams = vocoder.VocoderParams(sample_rate=SR)
     carrier = np.sign(np.sin(2 * np.pi * 110.0 * np.arange(n) / SR))
     return bank, rcfg, vparams, carrier
@@ -403,18 +413,20 @@ def _check_chain_result(res, launches):
     return peak_r, peak_v
 
 
-def phase_device_chain(card: str) -> int:
-    """Bench-width device-tracker chain on cuda; returns the kernel
-    launches of its first timed run."""
+def phase_device_chain(card: str, dtype: str = "float32") -> int:
+    """Bench-width device-tracker chain on cuda at `dtype` ("float32", or
+    "df32": the fidelity chain); returns the kernel launches of its first
+    timed run."""
     import torch
 
     from cpp_audio_tpu_torch.analysis import chain
     from cpp_audio_tpu_torch.analysis import device_tracker as tdt
     from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 
+    tag = "device chain" if dtype == "float32" else "df chain"
     n = int(SR * SECONDS)
     sch, cfg = make_synth_workload(SR, n)
-    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg, dtype)
 
     def run(timings=None):
         res = chain.run_offline_chain_device(bank, n, rcfg, vparams, carrier,
@@ -425,7 +437,7 @@ def phase_device_chain(card: str) -> int:
 
     t0 = time.perf_counter()
     run()
-    print(f"[device chain] first run {time.perf_counter() - t0:.3f} s")
+    print(f"[{tag}] first run {time.perf_counter() - t0:.3f} s")
     walls = []
     for i in range(5):
         if i == 0:
@@ -439,16 +451,21 @@ def phase_device_chain(card: str) -> int:
             syncs = tdt.HOST_SYNCS - syncs
     wall = statistics.median(walls)
     peak_r, peak_v = _check_chain_result(res, launches)
-    print(f"[device chain] tracker={res.tracker} n_frames={res.n_frames} "
+    print(f"[{tag}] tracker={res.tracker} n_frames={res.n_frames} "
           f"dropped={int(res.dropped)} resynth {tuple(res.resynth.shape)} "
-          f"vocoded {tuple(res.vocoded.shape)} peaks {peak_r:.4f} / {peak_v:.4f} "
-          f"launches={launches} host synchronisations per chain={syncs}")
-    print(f"[device chain] warm wall per render: median {wall * 1e3:.3f} ms, "
+          f"{res.resynth.dtype} vocoded {tuple(res.vocoded.shape)} peaks "
+          f"{peak_r:.4f} / {peak_v:.4f} launches={launches} host "
+          f"synchronisations per chain={syncs}")
+    print(f"[{tag}] warm wall per render: median {wall * 1e3:.3f} ms, "
           f"max {max(walls) * 1e3:.3f} ms of {len(walls)} runs "
           f"({', '.join(f'{w * 1e3:.3f}' for w in walls)} ms), "
           f"realtime factor {SECONDS / wall:.1f}x on {card}")
     if syncs != 1:
         raise RuntimeError(f"{syncs} tracker host synchronisations per chain, expected 1")
+    if launches != 1 or int(res.dropped) != 0 or res.resynth.dtype != torch.float32:
+        raise RuntimeError(f"{tag}: {launches} kernel launches, dropped "
+                           f"{int(res.dropped)}, resynth {res.resynth.dtype}; "
+                           "expected 1, 0, float32")
     # the program the JAX headline times: staged once, step() back to back
     step, _ = chain.prepare_offline_chain_device(bank, n, rcfg, vparams, carrier,
                                                  block_size=cfg.block_size,
@@ -465,13 +482,15 @@ def phase_device_chain(card: str) -> int:
         t0 = time.perf_counter()
         run_step()
         step_walls.append(time.perf_counter() - t0)
-    print(f"[device chain] step() alone (arguments staged once): median "
-          f"{statistics.median(step_walls) * 1e3:.3f} ms of 5 runs "
-          f"({', '.join(f'{w * 1e3:.3f}' for w in step_walls)} ms) on {card}")
-    print(f"[device chain] synchronising calls torch reports (sync debug "
+    step_wall = statistics.median(step_walls)
+    print(f"[{tag}] step() alone (arguments staged once): median "
+          f"{step_wall * 1e3:.3f} ms of 5 runs "
+          f"({', '.join(f'{w * 1e3:.3f}' for w in step_walls)} ms), realtime "
+          f"factor {SECONDS / step_wall:.1f}x on {card}")
+    print(f"[{tag}] synchronising calls torch reports (sync debug "
           f"mode): per chain {_reported_syncs(run)}; per step() "
           f"{_reported_syncs(run_step)}")
-    _profile_chain(run, tag="device ")
+    _profile_chain(run, tag="device " if dtype == "float32" else "df ")
     return launches
 
 
@@ -513,26 +532,50 @@ def _dispatched_ops(run) -> int:
     return count.n
 
 
-def headline_tracker_inputs(n, sch, cfg, dev):
-    """The device chain's tracker inputs, staged as
-    chain.prepare_offline_chain_device stages them: the peaks of its
-    _fused_analyze_vocode and the tracker's arrays (loudness tables, draw
+def headline_tracker_inputs(n, sch, cfg, dev, dtype="float32"):
+    """The device chain's tracker inputs at `dtype` ("float32", or "df32":
+    the fidelity chain's float64 ones), staged as
+    chain.prepare_offline_chain_device stages them: the peaks of the
+    chain's analysis and the tracker's arrays (loudness tables, draw
     pools), its keywords (autotune arrays included) and the render
     config."""
     from cpp_audio_tpu_torch.analysis import chain, resynth
-    from cpp_audio_tpu_torch.models import voicebank
 
-    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
-    args, statics = voicebank.prepare_bank_arrays(bank, n, cfg.block_size,
-                                                  rcfg.dtype, device=dev)
-    (window, bm_car, rows), av_kw = chain._analyze_vocode_inputs(n, rcfg, vparams, dev)
-    freq, mag, _mix = chain._fused_analyze_vocode(
-        *args, window, chain._carrier_tensor(carrier, n, rcfg, dev), bm_car,
-        rows, **statics, **av_kw)
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg, dtype)
+    bank_args, av_args, av_kw = chain._stage_analyze_vocode(
+        bank, n, rcfg, vparams, carrier, cfg.block_size, dev)
+    if dtype == "df32":
+        freq, mag, _mix = chain._fused_analyze_vocode_df(
+            *bank_args, *av_args, df_mode=chain.DF_ANALYSIS_MODE, **av_kw)
+    else:
+        freq, mag, _mix = chain._fused_analyze_vocode(*bank_args, *av_args,
+                                                      **av_kw)
     render = resynth._render_config(rcfg)
     arrays, kw = chain._tracker_inputs(rcfg, render, int(freq.shape[0]), None,
                                        freq.dtype, dev)
     return (freq, mag, *arrays), kw, render
+
+
+def check_frame_parallel(tag, inputs, kw):
+    """The violation flag of the frame-parallel tracker on `inputs` (read
+    through device_tracker._prep_lanes / _parallel_tables, as
+    build_tables_device reads it); fails unless it is false, as the JAX
+    headline's."""
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+
+    freq, mag, loud_p, loud_s, pan, phase, at = tdt._inputs(
+        *inputs, kw["autotune_arrays"], inputs[0].device)
+    tpitch, volume, order, _k = tdt._prep_lanes(freq, mag, loud_p, loud_s, at, kw)
+    defaults = tdt._default_row(freq.dtype, freq.device)
+    _table, viol = tdt._parallel_tables(tpitch, volume, order, freq.shape[0],
+                                        pan, phase, defaults, kw)
+    valid = tpitch[:freq.shape[0]].isfinite()
+    print(f"[{tag}] headline peaks {tuple(freq.shape)} {freq.dtype}: lanes "
+          f"{tpitch.shape[-1]}, tuned pitches per frame max "
+          f"{int(valid.sum(-1).max())} mean {float(valid.sum(-1).float().mean()):.1f}; "
+          f"frame-parallel violation flag {bool(viol)}")
+    if bool(viol) or not kw["min_volume"] > 0:
+        raise RuntimeError(f"{tag}: the tracker did not take the frame-parallel path")
 
 
 def phase_scan_fallback():
@@ -548,19 +591,7 @@ def phase_scan_fallback():
     n = int(SR * SECONDS)
     sch, cfg = make_synth_workload(SR, n)
     inputs, kw, render = headline_tracker_inputs(n, sch, cfg, "cuda")
-    freq, mag, loud_p, loud_s, pan, phase = inputs
-    tpitch, volume, order, _k = tdt._prep_lanes(freq, mag, loud_p, loud_s,
-                                                kw["autotune_arrays"], kw)
-    defaults = tdt._default_row(freq.dtype, freq.device)
-    _table, viol = tdt._parallel_tables(tpitch, volume, order, freq.shape[0],
-                                        pan, phase, defaults, kw)
-    valid = torch.isfinite(tpitch[:freq.shape[0]])
-    print(f"[tracker] headline peaks {tuple(freq.shape)}: lanes {tpitch.shape[-1]}, "
-          f"tuned pitches per frame max {int(valid.sum(-1).max())} "
-          f"mean {float(valid.sum(-1).float().mean()):.1f}; frame-parallel "
-          f"violation flag {bool(viol)}")
-    if bool(viol) or not kw["min_volume"] > 0:
-        raise RuntimeError("the headline tracker did not take the frame-parallel path")
+    check_frame_parallel("tracker", inputs, kw)
 
     def build(force_scan):
         torch.cuda.synchronize()
@@ -669,6 +700,150 @@ def phase_device_reference():
         _hold_resynth("autotune scale_major, 2 s signal", other, g[:n_o], o[:n_o])
 
 
+def phase_df_chain(card: str) -> int:
+    """The fidelity chain (dtype "df32", hybrid analysis) at the headline
+    width on cuda, as phase 4 drives the float32 one; then the tracker's
+    violation flag on its own float64 peaks (must be false), and the
+    "ladder" analysis once at the headline. Returns the kernel launches of
+    its first timed run (must be 1)."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import chain
+
+    launches = phase_device_chain(card, "df32")
+    n = int(SR * SECONDS)
+    sch, cfg = make_synth_workload(SR, n)
+    inputs, kw, _render = headline_tracker_inputs(n, sch, cfg, "cuda", "df32")
+    check_frame_parallel("df chain", inputs, kw)
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg, "df32")
+    mode = chain.DF_ANALYSIS_MODE
+    chain.DF_ANALYSIS_MODE = "ladder"
+    try:
+        t0 = time.perf_counter()
+        res = chain.run_offline_chain_device(bank, n, rcfg, vparams, carrier,
+                                             block_size=cfg.block_size,
+                                             device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        chain.DF_ANALYSIS_MODE = mode
+    _check_chain_result(res, 1)
+    print(f"[df chain] ladder analysis (CPP_AUDIO_DF_ANALYSIS=ladder), one run: "
+          f"wall {wall * 1e3:.3f} ms, dropped {int(res.dropped)}, peak "
+          f"{float(res.resynth.abs().max()):.4f} on {card}")
+    return launches
+
+
+def rms_db(err, ref) -> float:
+    """bench.py's fidelity measure: 20 log10 of RMS error over RMS reference."""
+    r = float(np.sqrt(np.mean(np.square(ref))))
+    e = float(np.sqrt(np.mean(np.square(err))))
+    return 20.0 * np.log10(max(e, 1e-30) / max(r, 1e-30))
+
+
+def phase_df_fidelity():
+    """bench.py's fidelity rows (:282-394) for the port, at 12 s of the
+    headline workload: the fidelity chain on cuda against the float64
+    reference, which runs on device="cpu" (bench.py runs it in a CPU
+    subprocess): same peaks (the chain's own df32_analysis_peaks through
+    build_tables_native and render_table at float64) <= -80 dB; vocoded
+    against run_offline_chain at float64 <= -120 dB; the end-to-end resynth
+    printed (no bar); the note-level rows of df32_chain_table against
+    host_chain_table at float64 (tools/note_metrics.py) with note_e2e_pass
+    true. Also printed: same peaks through the Python host tracker, whose
+    table is float64 (the native packer's is float32)."""
+    import pathlib
+
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import chain, resynth
+    from cpp_audio_tpu_torch.models import resynth_bank
+    from cpp_audio_tpu_torch.ops import stft
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
+    import note_metrics
+
+    fsec = 12.0
+    fn = int(SR * fsec)
+    sch, cfg = make_synth_workload(SR, fn)
+    bank, fcfg, vparams, carrier = _chain_inputs(fn, sch, cfg, "df32")
+    args = (bank, fn, fcfg, vparams, carrier)
+    kw = dict(block_size=cfg.block_size, device="cuda")
+    res = chain.run_offline_chain_device(*args, **kw)
+    dev_resynth = res.resynth.cpu().numpy().astype(np.float64)
+    dev_voc = res.vocoded.cpu().numpy().astype(np.float64)
+    freq, mag = chain.df32_analysis_peaks(*args, **kw)
+    table_dev = chain.df32_chain_table(*args, **kw)
+    torch.cuda.synchronize()
+
+    print("[df fidelity] the float64 reference side runs on device='cpu' "
+          "(a reference, as bench.py runs it in a CPU subprocess; not a fallback)")
+    t0 = time.perf_counter()
+    cfg64 = resynth.ResynthConfig(sample_rate=SR, analysis_volume=1.0,
+                                  dtype="float64")
+    rcfg64 = resynth._render_config(cfg64)
+    n_frames = int(freq.shape[0])
+    same = {
+        "native": resynth_bank.render_table(
+            resynth.build_tables_native(freq, mag, cfg64, n_frames + 8, rcfg64),
+            rcfg64, device="cpu").numpy(),
+        "python": resynth_bank.render_tracked(
+            resynth.track(stft.top_peaks_to_lists(freq, mag), cfg64,
+                          prefer_native=False)[0],
+            n_frames, rcfg64, device="cpu").numpy()}
+    args64 = (bank, fn, cfg64, vparams, carrier)
+    e2e = chain.run_offline_chain(*args64, block_size=cfg.block_size, device="cpu")
+    table_host = chain.host_chain_table(*args64, block_size=cfg.block_size,
+                                        device="cpu")
+    print(f"[df fidelity] float64 reference on the CPU: {time.perf_counter() - t0:.1f} s")
+
+    def db_vs(ref, got):
+        m = min(len(got), len(ref))
+        return rms_db(got[:m] - ref[:m], ref[:m])
+
+    row = {"fidelity_seconds": fsec,
+           "fidelity_db_resynth": db_vs(same["native"], dev_resynth),
+           "fidelity_db_resynth_python_tracker": db_vs(same["python"], dev_resynth),
+           "fidelity_db_resynth_e2e": db_vs(e2e.resynth.numpy(), dev_resynth),
+           "fidelity_db_vocoded": db_vs(e2e.vocoded.numpy(), dev_voc)}
+    nm = note_metrics.note_level_metrics(table_dev, table_host, SR)
+    row.update({f"note_{k}": nm[k] for k in (
+        "f1_weighted", "f1", "freq_rms_cents", "vol_rms_db",
+        "freq_median_cents", "vol_median_db")})
+    row["note_counts"] = [nm["n_notes_a"], nm["n_notes_b"], nm["n_matched"]]
+    # bench.py:389-394
+    row["note_e2e_pass"] = bool(
+        nm["f1_weighted"] >= 0.98 and nm["freq_rms_cents"] <= 1.0
+        and nm["vol_rms_db"] <= 0.5 and nm["freq_median_cents"] <= 0.1
+        and nm["vol_median_db"] <= 0.1)
+    print(f"[df fidelity] {json.dumps(row)}")
+    if not (row["fidelity_db_resynth"] <= -80.0
+            and row["fidelity_db_vocoded"] <= -120.0 and row["note_e2e_pass"]):
+        raise RuntimeError("the fidelity chain misses a bar: same peaks <= -80 dB, "
+                           "vocoded <= -120 dB, note_e2e_pass")
+
+
+def phase_df_reference():
+    """The 2 s fidelity chain on tests/test_chain.py's workload on cuda
+    against the same chain on the CPU: resynth max|diff|/peak < 2e-3 and
+    vocoded atol 1e-4, the bars of phase 6."""
+    from cpp_audio_tpu_torch.analysis import chain
+
+    n = 2 * SR
+    sch, cfg = make_chain_test_workload(SR, n)
+    args = _chain_inputs(n, sch, cfg, "df32")
+    g, c = (chain.run_offline_chain_device(args[0], n, *args[1:],
+                                           block_size=1 << 13, device=dev)
+            for dev in ("cuda", "cpu"))
+    if g.n_frames != c.n_frames or int(g.dropped) != int(c.dropped):
+        raise RuntimeError("the cuda and cpu df chains disagree on frames")
+    dv = float((g.vocoded.cpu() - c.vocoded).abs().max())
+    print(f"[df reference] 2 s df chain: vocoded max|diff| {dv:.3e} cuda vs cpu")
+    if not dv <= 1e-4:
+        raise RuntimeError("the cuda df chain's vocoder disagrees with the CPU")
+    _hold_resynth("df chain, 2 s", "cpu df chain", g.resynth, c.resynth)
+
+
 def main() -> int:
     try:
         card = card_line()
@@ -690,6 +865,9 @@ def main() -> int:
         launches_device = phase_device_chain(card)
         phase_scan_fallback()
         phase_device_reference()
+        launches_df = phase_df_chain(card)
+        phase_df_fidelity()
+        phase_df_reference()
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1
@@ -700,6 +878,7 @@ def main() -> int:
         "replaces": "cpp_audio_tpu/ops/pallas_voicebank.py:30",
         "launches": launches,
         "launches_device_chain": launches_device,
+        "launches_df_chain": launches_df,
         **measured,
     }]}
     print(json.dumps(kernels))

@@ -17,9 +17,15 @@ Port of cpp_audio_tpu/analysis/chain.py, with its two trackers:
     tracker (analysis/device_tracker.py) builds the table where the peaks
     are, so nothing crosses to the host but the tracker's violation flag.
     Eager PyTorch dispatches op by op; "single dispatch" names the JAX
-    program this mirrors, not a property of the port. The float32 branch
-    only: the df32 fidelity chain (dtype "df32") is ROADMAP A9.
-Both share `_fused_analyze_vocode` (synth, analysis, vocoder).
+    program this mirrors, not a property of the port.
+The single-dispatch chain has two variants, as in the JAX package: the
+float32 (or float64) chain, and the fidelity chain (dtype "df32",
+_fused_single_dispatch_df, :404): synth and vocoder float32, double-grade
+analysis peaks, the device tracker and the render's phase advance at float64.
+The JAX package carries those double-grade values as df32 (hi, lo) pairs
+because the TPU has no float64; here they are float64 inside.
+Both variants share the synth and vocoder legs (`_synth_mono`,
+`_vocode_mix`).
 
 Reference scope: RtResynth's offline job loop (source/rt.resynth.lib.cpp:
 1185-1235 — input -> analysis -> resynth synth + vocoder).
@@ -27,6 +33,7 @@ Reference scope: RtResynth's offline job loop (source/rt.resynth.lib.cpp:
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -35,11 +42,18 @@ import torch
 
 from ..device import dtype_of
 from ..models import resynth_bank, voicebank
+from ..ops import dfft_hybrid
 from ..ops import stft as stft_ops
 from . import autotune as at
 from . import device_tracker
 from . import resynth as resynth_mod
 from . import vocoder as vocoder_mod
+
+# the fidelity chain's analysis: "hybrid" (float32 peak selection, float64
+# values at the selected bins, ops/dfft_hybrid.py) or "ladder" (float64
+# spectrum, selection and values, ops/stft._top_peaks_df). The JAX
+# package's environment override (chain.py:38), read at import as there.
+DF_ANALYSIS_MODE = os.environ.get("CPP_AUDIO_DF_ANALYSIS", "hybrid")
 
 
 @dataclass
@@ -72,80 +86,189 @@ def _stage_clock(dev: torch.device, timings: dict | None):
     return stage
 
 
+def _synth_dtype(rconfig) -> str:
+    """The synth's and the vocoder's dtype: float32 in the fidelity chain
+    (JAX chain.py:126-136, :149-158), else the config's."""
+    return "float32" if rconfig.dtype == "df32" else rconfig.dtype
+
+
+def _stage_analyze_vocode(bank: voicebank.VoiceBank, n_samples: int,
+                          rconfig: resynth_mod.ResynthConfig,
+                          vparams: vocoder_mod.VocoderParams, carrier,
+                          block_size: int, dev):
+    """The synth, analysis and vocoder legs' tensors on `dev` and their
+    static keywords: (bank_args, av_args, av_kw) for
+    `_fused_analyze_vocode(*bank_args, *av_args, **av_kw)`, or for
+    `_fused_analyze_vocode_df` when rconfig.dtype is "df32"."""
+    bank_args, statics = voicebank.prepare_bank_arrays(
+        bank, n_samples, block_size, _synth_dtype(rconfig), device=dev)
+    av_args, av_kw = _analyze_vocode_inputs(n_samples, rconfig, vparams,
+                                            carrier, dev)
+    return bank_args, av_args, dict(av_kw, **statics)
+
+
 def _analyze_vocode_inputs(n_samples: int, rconfig: resynth_mod.ResynthConfig,
-                           vparams: vocoder_mod.VocoderParams, dev):
-    """(window, band matrix, modulator rows) tensors on `dev`, and the
-    static keywords of _fused_analyze_vocode."""
-    wdt = dtype_of(rconfig.dtype)
+                           vparams: vocoder_mod.VocoderParams, carrier, dev):
+    """The analysis and vocoder legs' tensors on `dev` and their static
+    keywords. The tensors are (window, carrier, band matrix, modulator
+    rows); the fidelity chain's are (window, unit-sine scale, carrier, band
+    matrix, rows), with the analysis window and its scale (2 / sum(w))^2
+    float64 (JAX chain.py:515-518) and the rest float32."""
+    vdt = dtype_of(_synth_dtype(rconfig))
     sr = rconfig.sample_rate
     S = vparams.stride
     W = vparams.modulator_window
     car_fft = stft_ops.fft_length_for(2 * S)
     edges = vparams.band_freqs()
     n_mod_frames = max(0, (n_samples - W) // S + 1)
-    window = torch.as_tensor(
-        stft_ops.gaussian_window(rconfig.window_size, sigmas=4.0),
-        dtype=wdt, device=dev)
+    w = stft_ops.gaussian_window(rconfig.window_size, sigmas=4.0)
+    if rconfig.dtype == "df32":
+        f64 = torch.float64
+        analysis = (torch.as_tensor(w, dtype=f64, device=dev),
+                    torch.tensor((2.0 / float(np.sum(w))) ** 2, dtype=f64,
+                                 device=dev))
+    else:
+        analysis = (torch.as_tensor(w, dtype=vdt, device=dev),)
     bm_car = torch.as_tensor(
         vocoder_mod._band_matrix(edges, car_fft // 2 + 1, sr / car_fft),
-        dtype=wdt, device=dev)
+        dtype=vdt, device=dev)
     rows = torch.as_tensor(
         vocoder_mod.modulator_alignment_rows(n_samples, vparams, n_mod_frames),
         device=dev)
-    kw = dict(n=n_samples, window_size=rconfig.window_size,
-              stride=rconfig.stride,
-              fft_len=stft_ops.fft_length_for(rconfig.window_size),
-              k=rconfig.max_voices + 1, sample_rate=sr, mod_window=W,
-              voc_stride=S, car_fft=car_fft, n_mod_frames=n_mod_frames,
-              vol_mod=float(vparams.volume_modulator),
-              vol_car=float(vparams.volume_carrier),
-              vol_voc=float(vparams.volume_vocoded),
-              edges=tuple(float(e) for e in edges),
-              mod_shape=vparams.modulator_window_shape)
-    return (window, bm_car, rows), kw
+    car = torch.as_tensor(np.asarray(carrier), dtype=vdt,
+                          device=dev)[..., :n_samples]
+    av_kw = dict(n=n_samples, window_size=rconfig.window_size,
+                 stride=rconfig.stride,
+                 fft_len=stft_ops.fft_length_for(rconfig.window_size),
+                 k=rconfig.max_voices + 1, sample_rate=sr, mod_window=W,
+                 voc_stride=S, car_fft=car_fft, n_mod_frames=n_mod_frames,
+                 vol_mod=float(vparams.volume_modulator),
+                 vol_car=float(vparams.volume_carrier),
+                 vol_voc=float(vparams.volume_vocoded),
+                 edges=tuple(float(e) for e in edges),
+                 mod_shape=vparams.modulator_window_shape)
+    return (*analysis, car, bm_car, rows), av_kw
 
 
-def _carrier_tensor(carrier, n_samples: int, rconfig, dev) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(carrier), dtype=dtype_of(rconfig.dtype),
-                           device=dev)[..., :n_samples]
-
-
-def _fused_analyze_vocode(fp, ip, up, gains, codes, window, carrier, bm_car,
-                          rows, *, n: int, block_size: int, n_blocks: int,
-                          window_size: int, stride: int, fft_len: int, k: int,
-                          sample_rate: int, mod_window: int, voc_stride: int,
-                          car_fft: int, n_mod_frames: int, vol_mod: float,
-                          vol_car: float, vol_voc: float, edges: tuple,
-                          mod_shape: str = "gaussian", stage=_no_stage):
-    """Synth -> mono mixdown -> STFT top-k peaks, and the vocoder of the
-    mixdown (JAX chain.py:46-95). Returns (freq, mag_db, vocoder mix);
-    `stage` marks "synth", "analysis" and "vocoder"."""
-    # 1. synth render (dense tables: the kernel picks each tile's live
-    # rows itself) + mono mixdown
+def _synth_mono(fp, ip, up, gains, codes, *, n: int, block_size: int,
+                n_blocks: int) -> torch.Tensor:
+    """Synth render (dense tables: the kernel picks each tile's live rows
+    itself) -> mono mixdown of its first n samples."""
     out = voicebank.voicebank_blocks_impl(fp, ip, up, gains, codes,
                                           block_size=block_size,
                                           n_blocks=n_blocks)
-    mono = out.reshape(-1, out.shape[-1])[:n].sum(dim=1)
-    stage("synth")
+    return out.reshape(-1, out.shape[-1])[:n].sum(dim=1)
 
-    # 2. analysis: sliding Gaussian STFT -> top-k peaks
-    sq = stft_ops._stft_sqmag(mono, window, window_size=window_size,
-                              stride=stride, fft_length=fft_len)
-    freq, mag = stft_ops._top_peaks(sq, sample_rate=sample_rate,
-                                    fft_length=fft_len, k=k)
-    stage("analysis")
 
-    # 3. vocoder of the mixdown against the carrier
+def _vocode_mix(mono, carrier, bm_car, rows, *, sample_rate: int,
+                mod_window: int, voc_stride: int, car_fft: int,
+                n_mod_frames: int, vol_mod: float, vol_car: float,
+                vol_voc: float, edges: tuple, mod_shape: str = "gaussian"):
+    """The vocoder of the mixdown against the carrier, mixed with both."""
     amps = vocoder_mod._modulator_band_amps_fast(
         mono, edges, window=mod_window, stride=voc_stride,
         n_frames=n_mod_frames, sample_rate=sample_rate, shape=mod_shape)
     vocoded = vocoder_mod._carrier_vocode(carrier, amps[rows], bm_car,
                                           stride=voc_stride, fft_len=car_fft)
     out_len = vocoded.shape[0]
-    mix = (vol_voc * vocoded + vol_mod * mono[:out_len]
-           + vol_car * carrier[:out_len])
+    return (vol_voc * vocoded + vol_mod * mono[:out_len]
+            + vol_car * carrier[:out_len])
+
+
+def _fused_analyze_vocode(fp, ip, up, gains, codes, window, carrier, bm_car,
+                          rows, *, n: int, block_size: int, n_blocks: int,
+                          window_size: int, stride: int, fft_len: int, k: int,
+                          stage=_no_stage, **voc_kw):
+    """Synth -> mono mixdown -> STFT top-k peaks, and the vocoder of the
+    mixdown (JAX chain.py:46-95). Returns (freq, mag_db, vocoder mix);
+    `stage` marks "synth", "analysis" and "vocoder"."""
+    mono = _synth_mono(fp, ip, up, gains, codes, n=n, block_size=block_size,
+                       n_blocks=n_blocks)
+    stage("synth")
+    sq = stft_ops._stft_sqmag(mono, window, window_size=window_size,
+                              stride=stride, fft_length=fft_len)
+    freq, mag = stft_ops._top_peaks(sq, sample_rate=voc_kw["sample_rate"],
+                                    fft_length=fft_len, k=k)
+    stage("analysis")
+    mix = _vocode_mix(mono, carrier, bm_car, rows, **voc_kw)
     stage("vocoder")
     return freq, mag, mix
+
+
+def _fused_analyze_vocode_df(fp, ip, up, gains, codes, window, scale, carrier,
+                             bm_car, rows, *, n: int, block_size: int,
+                             n_blocks: int, window_size: int, stride: int,
+                             fft_len: int, k: int, df_mode: str = "hybrid",
+                             stage=_no_stage, **voc_kw):
+    """The fidelity chain's synth -> analysis, and the vocoder (JAX
+    chain.py:104): the synth renders and the vocoder runs in float32; the
+    analysis peaks are double-grade, float64 inside. df_mode "hybrid"
+    selects peaks from the float32 rfft spectrum and evaluates the selected
+    bins in float64 (ops/dfft_hybrid.hybrid_peaks_df32); "ladder" selects
+    and evaluates on the float64 spectrum (ops/stft._top_peaks_df).
+    window: float64 (W,); scale: 0-d float64, (2 / sum(window))^2.
+    Returns (freq, mag_db) float64 (F, k) and the float32 vocoder mix;
+    `stage` as in _fused_analyze_vocode."""
+    mono = _synth_mono(fp, ip, up, gains, codes, n=n, block_size=block_size,
+                       n_blocks=n_blocks)
+    stage("synth")
+    sr = voc_kw["sample_rate"]
+    if df_mode == "hybrid":
+        freq, mag = dfft_hybrid.hybrid_peaks_df32(
+            mono, window, scale, window_size=window_size, stride=stride,
+            fft_length=fft_len, sample_rate=sr, k=k)
+    elif df_mode == "ladder":
+        n_frames = max(0, (n - window_size) // stride + 1)
+        frames = stft_ops.frame_signal(mono, window_size, stride, n_frames)
+        sq = stft_ops.frames_sqmag_f64(frames, window, scale,
+                                       fft_length=fft_len)
+        freq, mag = stft_ops._top_peaks_df(sq, sample_rate=sr,
+                                           fft_length=fft_len, k=k)
+    else:
+        raise ValueError(f"unknown df analysis mode {df_mode!r}")
+    stage("analysis")
+    mix = _vocode_mix(mono, carrier, bm_car, rows, **voc_kw)
+    stage("vocoder")
+    return freq, mag, mix
+
+
+def _host_table(freq, mag, rconfig, n_frames: int, rcfg):
+    """The host tracker's (n_frames + 8, n_slots, 16) slot table of host
+    (frames, k) peaks, and which tracker built it: the native table packer
+    when the library is available, the draws are sequential and the
+    harmonize semantics are the reference's (or harmonize is off); the
+    Python tracker otherwise (JAX chain.py:305-322)."""
+    from .. import native as nat
+
+    native_sem_ok = (rconfig.harmonize_semantics == "reference"
+                     or (rconfig.pitch_harmonize_pre_autotune == 0.0
+                         and rconfig.pitch_harmonize_post_autotune == 0.0))
+    if nat.available() and rconfig.draw_indexing != "stable" and native_sem_ok:
+        return resynth_mod.build_tables_native(freq, mag, rconfig,
+                                               n_frames + 8, rcfg), "native"
+    peaks = stft_ops.top_peaks_to_lists(freq, mag)
+    notes, _stats, _dropped = resynth_mod.track(peaks, rconfig,
+                                                prefer_native=False)
+    return resynth_bank._build_slot_tables(notes, n_frames + 8, rcfg), "python"
+
+
+def _host_chain_front(bank, n_samples, rconfig, vparams, carrier, block_size,
+                      dev, stage=_no_stage):
+    """Synth, analysis and vocoder on `dev`, then the host tracker's table:
+    (table, tracker name, n_frames, vocoder mix)."""
+    if rconfig.dtype == "df32":
+        raise ValueError("the host-tracker chain runs float32 or float64; the "
+                         "fidelity chain (dtype 'df32') is "
+                         "run_offline_chain_device")
+    bank_args, av_args, av_kw = _stage_analyze_vocode(
+        bank, n_samples, rconfig, vparams, carrier, block_size, dev)
+    freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, stage=stage,
+                                           **av_kw)
+    freq_h = freq.cpu().numpy()
+    n_frames = int(freq_h.shape[0])
+    table, tracker = _host_table(freq_h, mag.cpu().numpy(), rconfig, n_frames,
+                                 resynth_mod._render_config(rconfig))
+    return table, tracker, n_frames, mix
 
 
 def run_offline_chain(bank: voicebank.VoiceBank, n_samples: int,
@@ -164,41 +287,31 @@ def run_offline_chain(bank: voicebank.VoiceBank, n_samples: int,
     stage and the stage's wall seconds are stored under "synth",
     "analysis", "vocoder", "tracker" and "render" (a measurement aid: the
     synchronisations cost overlap, so time the chain without it)."""
-    from .. import native as nat
-
     dev = torch.device(device)
     stage = _stage_clock(dev, timings)
-    args, statics = voicebank.prepare_bank_arrays(bank, n_samples, block_size,
-                                                  rconfig.dtype, device=dev)
-    (window, bm_car, rows), av_kw = _analyze_vocode_inputs(n_samples, rconfig,
-                                                           vparams, dev)
-    freq, mag, mix = _fused_analyze_vocode(
-        *args, window, _carrier_tensor(carrier, n_samples, rconfig, dev),
-        bm_car, rows, stage=stage, **statics, **av_kw)
-
-    # 4. host: tracking + slot table, then the tracked-note render
-    freq_h = freq.cpu().numpy()
-    mag_h = mag.cpu().numpy()
-    n_frames = int(freq_h.shape[0])
-    rcfg = resynth_mod._render_config(rconfig)
-    native_sem_ok = (rconfig.harmonize_semantics == "reference"
-                     or (rconfig.pitch_harmonize_pre_autotune == 0.0
-                         and rconfig.pitch_harmonize_post_autotune == 0.0))
-    if nat.available() and rconfig.draw_indexing != "stable" and native_sem_ok:
-        table = resynth_mod.build_tables_native(freq_h, mag_h, rconfig,
-                                                n_frames + 8, rcfg)
-        tracker = "native"
-    else:
-        peaks = stft_ops.top_peaks_to_lists(freq_h, mag_h)
-        notes, _stats, _dropped = resynth_mod.track(peaks, rconfig,
-                                                    prefer_native=False)
-        table = resynth_bank._build_slot_tables(notes, n_frames + 8, rcfg)
-        tracker = "python"
+    table, tracker, n_frames, mix = _host_chain_front(
+        bank, n_samples, rconfig, vparams, carrier, block_size, dev, stage)
     stage("tracker")
-    stereo = resynth_bank.render_table(table, rcfg, device=dev)
+    stereo = resynth_bank.render_table(table, resynth_mod._render_config(rconfig),
+                                       device=dev)
     stage("render")
     return OfflineChainResult(resynth=stereo, vocoded=mix, n_frames=n_frames,
                               tracker=tracker)
+
+
+def host_chain_table(bank: voicebank.VoiceBank, n_samples: int,
+                     rconfig: resynth_mod.ResynthConfig,
+                     vparams: vocoder_mod.VocoderParams, carrier,
+                     *, block_size: int = 1 << 15, device="cuda") -> np.ndarray:
+    """The host pipeline's (total_frames, n_slots, 16) slot table for a
+    workload, as float64 numpy: synth -> analysis peaks -> host tracker
+    (the front of run_offline_chain without the render; JAX chain.py:661).
+    The note-level reference of the fidelity chain (tools/note_metrics.py)
+    at dtype "float64"."""
+    table, _tracker, _n, _mix = _host_chain_front(
+        bank, n_samples, rconfig, vparams, carrier, block_size,
+        torch.device(device))
+    return np.asarray(table, np.float64)
 
 
 def autotune_device_arrays(rconfig, dtype=torch.float32, *, device="cuda"):
@@ -220,6 +333,13 @@ def autotune_device_arrays(rconfig, dtype=torch.float32, *, device="cuda"):
     elif tables["kind"] == "allowed":
         allowed = as_t(tables["allowed"])
     return tables["kind"], (root, scale, equid, allowed)
+
+
+def autotune_device_arrays_df(rconfig, *, device="cuda"):
+    """The fidelity tracker's autotune tables (JAX chain.py:162, there as
+    df32 (hi, lo) pairs): autotune_device_arrays at float64. Returns
+    (kind, float64 tensors)."""
+    return autotune_device_arrays(rconfig, torch.float64, device=device)
 
 
 def tracker_config_kwargs(rconfig, rcfg) -> dict:
@@ -257,12 +377,9 @@ def tracker_config_kwargs(rconfig, rcfg) -> dict:
 
 
 def _device_dtype(rconfig) -> torch.dtype:
-    if rconfig.dtype == "df32":
-        raise NotImplementedError(
-            "the df32 fidelity chain (device_tracker df32 tracker, "
-            "_fused_single_dispatch_df) is not ported yet (ROADMAP A9); use "
-            "dtype 'float32' or 'float64'")
-    return dtype_of(rconfig.dtype)
+    """The device tracker's working dtype: float64 in the fidelity chain
+    (the JAX package's df32 pairs), else the config's."""
+    return torch.float64 if rconfig.dtype == "df32" else dtype_of(rconfig.dtype)
 
 
 def _n_frames(n_samples: int, rconfig) -> int:
@@ -317,11 +434,36 @@ def _fused_single_dispatch(bank_args, av_args, tracker_args, *, av_kw: dict,
     return out, mix, dropped
 
 
+def _fused_single_dispatch_df(bank_args, av_args, tracker_args, *,
+                              av_kw: dict, tr_kw: dict,
+                              df_mode: str = "hybrid", emit: str = "render",
+                              stage=_no_stage):
+    """The fidelity chain on the device (JAX chain.py:404): synth (float32,
+    the voice-bank kernel) -> double-grade peaks -> float64 device tracker
+    -> 17-field table -> df-phase render (float32 out, the phase advance in
+    float64), plus the float32 vocoder. Returns (framed stereo (F, S, 2),
+    vocoder mix, dropped); with emit="table" the (total_frames, n_slots,
+    17) float64 table in place of the render (the note-level metric's
+    input). `stage` as in _fused_single_dispatch."""
+    freq, mag, mix = _fused_analyze_vocode_df(*bank_args, *av_args,
+                                              df_mode=df_mode, stage=stage,
+                                              **av_kw)
+    table, dropped = device_tracker.build_tables_device_df(
+        freq, mag, *tracker_args, device=freq.device, **tr_kw)
+    stage("tracker")
+    if emit == "table":
+        return table, mix, dropped
+    out = resynth_bank._render_slots(table, stride=tr_kw["stride"],
+                                     dtype="float32")
+    stage("render")
+    return out, mix, dropped
+
+
 def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
                                  rconfig: resynth_mod.ResynthConfig,
                                  vparams: vocoder_mod.VocoderParams, carrier,
                                  *, block_size: int = 1 << 15, draws=None,
-                                 device="cuda"):
+                                 emit: str = "render", device="cuda"):
     """Stage the device-resident arguments of the single-dispatch chain on
     `device` and return (step, n_frames): `step(stage=None)` runs synth ->
     STFT -> peaks -> device tracker -> render + vocoder over them and
@@ -329,28 +471,72 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
     device value it reads on the host is the tracker's violation flag. Call
     step() back to back to serve; flatten with assemble_framed_stereo.
 
+    dtype "df32" stages the fidelity chain (_fused_single_dispatch_df, in
+    the analysis mode DF_ANALYSIS_MODE); its emit="table" returns the slot
+    table in place of the render (JAX chain.py:436-439).
     draws: optional (pan_draws, phase_draws) pools; defaults to the numpy
     pools matching the host tracker's RNG sequence.
     """
     dev = torch.device(device)
-    wdt = _device_dtype(rconfig)
-    bank_args, statics = voicebank.prepare_bank_arrays(
-        bank, n_samples, block_size, rconfig.dtype, device=dev)
-    (window, bm_car, rows), av_kw = _analyze_vocode_inputs(n_samples, rconfig,
-                                                           vparams, dev)
-    av_args = (window, _carrier_tensor(carrier, n_samples, rconfig, dev),
-               bm_car, rows)
+    df = rconfig.dtype == "df32"
+    if emit not in ("render", "table") or (emit == "table" and not df):
+        raise ValueError(f"emit={emit!r}: 'table' is the fidelity chain's "
+                         "(dtype 'df32')")
+    bank_args, av_args, av_kw = _stage_analyze_vocode(
+        bank, n_samples, rconfig, vparams, carrier, block_size, dev)
     n_frames = _n_frames(n_samples, rconfig)
     tracker_args, tr_kw = _tracker_inputs(
-        rconfig, resynth_mod._render_config(rconfig), n_frames, draws, wdt, dev)
-    av_kw.update(statics)
+        rconfig, resynth_mod._render_config(rconfig), n_frames, draws,
+        _device_dtype(rconfig), dev)
+    df_mode = DF_ANALYSIS_MODE
 
     def step(stage=_no_stage):
+        if df:
+            return _fused_single_dispatch_df(
+                bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw,
+                df_mode=df_mode, emit=emit, stage=stage)
         return _fused_single_dispatch(bank_args, av_args, tracker_args,
                                       av_kw=av_kw, tr_kw=tr_kw,
                                       dtype=rconfig.dtype, stage=stage)
 
     return step, n_frames
+
+
+def df32_analysis_peaks(bank: voicebank.VoiceBank, n_samples: int,
+                        rconfig: resynth_mod.ResynthConfig,
+                        vparams: vocoder_mod.VocoderParams, carrier,
+                        *, block_size: int = 1 << 15, device="cuda"):
+    """The fidelity chain's ANALYSIS stage alone (JAX chain.py:595): synth
+    -> double-grade peaks, returned as (n_frames, k) float64 numpy (freq,
+    mag_db). bench.py's same-peaks fidelity row feeds these exact peaks to
+    the host float64 tracker and renderer, so the comparison isolates
+    tracking and rendering numerics from noise-floor peak churn."""
+    if rconfig.dtype != "df32":
+        raise ValueError("df32_analysis_peaks takes a dtype 'df32' config")
+    bank_args, av_args, av_kw = _stage_analyze_vocode(
+        bank, n_samples, rconfig, vparams, carrier, block_size,
+        torch.device(device))
+    freq, mag, _mix = _fused_analyze_vocode_df(
+        *bank_args, *av_args, df_mode=DF_ANALYSIS_MODE, **av_kw)
+    return freq.cpu().numpy(), mag.cpu().numpy()
+
+
+def df32_chain_table(bank: voicebank.VoiceBank, n_samples: int,
+                     rconfig: resynth_mod.ResynthConfig,
+                     vparams: vocoder_mod.VocoderParams, carrier,
+                     *, block_size: int = 1 << 15, draws=None,
+                     device="cuda") -> np.ndarray:
+    """The fidelity chain's TRACKER OUTPUT (JAX chain.py:645): the
+    (total_frames, n_slots, 17) slot table the renderer consumes, float64
+    numpy — the note-level ground truth of a device run, for
+    tools/note_metrics.py's comparison with host_chain_table at float64."""
+    if rconfig.dtype != "df32":
+        raise ValueError("df32_chain_table takes a dtype 'df32' config")
+    step, _n_frames = prepare_offline_chain_device(
+        bank, n_samples, rconfig, vparams, carrier, block_size=block_size,
+        draws=draws, emit="table", device=device)
+    table, _mix, _dropped = step()
+    return table.cpu().numpy()
 
 
 def assemble_framed_stereo(framed: torch.Tensor, start_sample: int) -> torch.Tensor:
@@ -370,10 +556,10 @@ def run_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
     """The offline chain with the DEVICE tracker (analysis/device_tracker.py)
     in place of the host pitch pipeline: synth, analysis, tracking, render
     and vocoder all on `device`. Covers the reference's default config
-    space including autotune (scale/chord/intervals) and harmonize.
-    `resynth` is (T, 2), `dropped` a device scalar. timings: as in
-    run_offline_chain ("tracker" is the device tracker; "synth" includes
-    staging the arguments)."""
+    space including autotune (scale/chord/intervals) and harmonize; dtype
+    "df32" runs the fidelity chain (float32 out). `resynth` is (T, 2),
+    `dropped` a device scalar. timings: as in run_offline_chain ("tracker"
+    is the device tracker; "synth" includes staging the arguments)."""
     dev = torch.device(device)
     stage = _stage_clock(dev, timings)
     step, n_frames = prepare_offline_chain_device(
@@ -390,16 +576,21 @@ def _fused_resynth_from_signal(mono, window, tracker_args, *, tr_kw: dict,
                                rconfig, start_sample: int):
     """Analysis -> resynthesis of a PROVIDED mono signal (the rt.resynth.job
     WAV path) on its device: STFT -> peaks -> device tracker -> render
-    (JAX chain.py:751-778). Returns ((T, 2) stereo, dropped)."""
+    (JAX chain.py:751-778). Returns ((T, 2) stereo, dropped). dtype "df32"
+    analyses in float64 (as JAX does: its working dtype is float64), tracks
+    with the fidelity tracker and renders the 17-field table to float32
+    (the render config's dtype)."""
     fft_len = stft_ops.fft_length_for(rconfig.window_size)
     sq = stft_ops._stft_sqmag(mono, window, window_size=rconfig.window_size,
                               stride=rconfig.stride, fft_length=fft_len)
     freq, mag = stft_ops._top_peaks(sq, sample_rate=rconfig.sample_rate,
                                     fft_length=fft_len, k=rconfig.max_voices + 1)
-    table, dropped = device_tracker.build_tables_device(
-        freq, mag, *tracker_args, device=mono.device, **tr_kw)
-    out = resynth_bank._render_slots(table, stride=tr_kw["stride"],
-                                     dtype=rconfig.dtype)
+    build = (device_tracker.build_tables_device_df if rconfig.dtype == "df32"
+             else device_tracker.build_tables_device)
+    table, dropped = build(freq, mag, *tracker_args, device=mono.device, **tr_kw)
+    out = resynth_bank._render_slots(
+        table, stride=tr_kw["stride"],
+        dtype=resynth_mod._render_config(rconfig).dtype)
     return assemble_framed_stereo(out, start_sample), dropped
 
 
@@ -435,27 +626,27 @@ def prepare_offline_chain_device_batch(banks, n_samples: int,
     frame-local pass over every job's frames, the violation hoisted over
     the batch). The JAX program's 64-slot render split and its lax.cond
     (JAX chain.py:915-928) worked around conds under vmap; the port renders
-    each job's table whole.
+    each job's table whole. float32 or float64, as in the JAX package.
 
     banks: list of VoiceBank (same n_samples/config per job).
     carrier: (n,) shared or (B, n) per-job.
     Returns (step, n_frames); step() -> (stereo (B, T, 2), vocoded (B, m),
     dropped (B,)).
     """
+    if rconfig.dtype == "df32":
+        raise ValueError("the batched chain runs float32 or float64")
     dev = torch.device(device)
-    wdt = _device_dtype(rconfig)
     jobs = [voicebank.prepare_bank_arrays(bank, n_samples, block_size,
                                           rconfig.dtype, device=dev)
             for bank in banks]
-    (window, bm_car, rows), av_kw = _analyze_vocode_inputs(n_samples, rconfig,
-                                                           vparams, dev)
-    carrier_dev = _carrier_tensor(carrier, n_samples, rconfig, dev)
+    (window, carrier_dev, bm_car, rows), av_kw = _analyze_vocode_inputs(
+        n_samples, rconfig, vparams, carrier, dev)
     if carrier_dev.dim() == 1:
         carrier_dev = carrier_dev.expand(len(banks), -1)
     n_frames = _n_frames(n_samples, rconfig)
     rcfg = resynth_mod._render_config(rconfig)
-    tracker_args, tr_kw = _tracker_inputs(rconfig, rcfg, n_frames, draws, wdt,
-                                          dev)
+    tracker_args, tr_kw = _tracker_inputs(rconfig, rcfg, n_frames, draws,
+                                          dtype_of(rconfig.dtype), dev)
 
     def step():
         outs = [_fused_analyze_vocode(*args, window, carrier_dev[b], bm_car,

@@ -21,8 +21,9 @@ tracker is device code:
   * both paths emit the SAME (total_frames, n_slots, 16) control table the
     host builders produce (models/resynth_bank.py field order).
 
-Port of cpp_audio_tpu/analysis/device_tracker.py, float32 serving path
-(:1-1201; the df32 tracker, :1204-2126, is not ported). What the TPU shaped
+Port of cpp_audio_tpu/analysis/device_tracker.py: the float32 serving path
+(:1-1201), and the fidelity chain's tracker (the df32 tracker, :1204-2126)
+as this same code at float64 (`build_tables_device_df`). What the TPU shaped
 and the port does not keep: every one-hot contraction that stood in for a
 gather or a scatter is a gather, a scatter or a scatter-reduce (exact: each
 target is unique or the sum is a real group sum); the boolean matrix
@@ -32,7 +33,7 @@ HOST_SYNCS) and runs one branch; `lax.scan` over frames is a Python loop.
 `.at[i].set(..., mode="drop")` writes go through a spare row that is
 sliced off (or, for per-slot state, kept as row P and never read), so the
 only duplicate targets are that spare row. The working dtype follows the
-peaks: float32 on the serving path, float64 in the parity tests.
+peaks: float32 on the serving path, float64 in the fidelity chain.
 
 Semantics match PitchTracker/native pitchpipe exactly for the supported
 config subset, as in the JAX package (see its module docstring).
@@ -1063,3 +1064,42 @@ def build_tables_device(freq, mag_db, loud_pitches, loud_spl, pan_draws,
             return table, torch.zeros((), dtype=torch.int64, device=freq.device)
     return _scan_tables(tpitch, volume, loud_order, F, pan_draws, phase_draws,
                         defaults, kw)
+
+
+def split_increment(table: torch.Tensor) -> torch.Tensor:
+    """(..., 16) float64 table -> (..., 17) with the JAX df table's
+    increment contract (JAX device_tracker.py:1228): field 0 holds the
+    increment rounded to float32, field 16 the rest, inc - float32(inc), so
+    field 0 + field 16 is the increment exactly."""
+    inc = table[..., _F_INC]
+    hi = inc.to(torch.float32).to(table.dtype)
+    return torch.cat([table[..., :_F_INC], hi[..., None],
+                      table[..., _F_INC + 1:], (inc - hi)[..., None]], dim=-1)
+
+
+def build_tables_device_df(freq, mag_db, loud_pitches, loud_spl, pan_draws,
+                           phase_draws, *, device="cuda", **kw):
+    """The fidelity chain's tracker: (F, k) float64 peaks -> ((total_frames,
+    n_slots, 17) float64 table, dropped), on `device`.
+
+    Port of JAX device_tracker.py:2070, which re-runs the float32 tracker's
+    semantics with every decision quantity and recurrence carried as df32
+    (hi, lo) pairs because the TPU has no float64. Here the values are
+    float64 inside: the same build_tables_device (frame-local stage, then
+    the frame-parallel tracker, or the exact frame loop when its violation
+    flag is set), at float64, with its keywords (autotune_arrays float64,
+    _force_scan). The 17th field follows JAX's contract (split_increment),
+    so the render takes the df-phase path and JAX's df tables and these
+    compare field by field.
+
+    One deliberate difference: on a violation JAX falls back to its float32
+    frame loop with a zero field 16 (:2092-2098); here the frame loop runs
+    at float64 and field 0 is split as everywhere else.
+    """
+    freq = torch.as_tensor(freq, device=torch.device(device))
+    if freq.dtype != torch.float64:
+        raise ValueError(f"the fidelity tracker takes float64 peaks, got {freq.dtype}")
+    table, dropped = build_tables_device(freq, mag_db, loud_pitches, loud_spl,
+                                         pan_draws, phase_draws, device=device,
+                                         **kw)
+    return split_increment(table), dropped

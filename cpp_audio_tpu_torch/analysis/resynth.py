@@ -479,7 +479,9 @@ def resynthesize(signal, config: ResynthConfig, *,
     configs, which go to "native"; "device" forces the device tracker;
     "native" takes the fused C++ table packer when the library is available
     and the draws are sequential (else the Python tracker); "python" forces
-    the pure-Python tracker.
+    the pure-Python tracker. dtype "df32" routes as in the JAX package: the
+    analysis runs at float64 and the render config's dtype is float32; the
+    device route tracks with the fidelity tracker (a 17-field table).
     """
     if implementation not in ("auto", "device", "native", "python"):
         raise ValueError(f"unknown implementation {implementation!r}")

@@ -47,6 +47,27 @@ def slot_table_from_numpy(table, *, device="cuda") -> torch.Tensor:
     return _tensor(table, torch.device(device))
 
 
+def df_pair_to_f64(hi, lo, *, device="cuda") -> torch.Tensor:
+    """The JAX package's df32 (hi, lo) pair -> one float64 tensor on
+    `device`, hi + lo (exact: both limbs are float32, so their sum is a
+    float64 with no rounding). Padding lanes keep hi's -inf / NaN."""
+    hi = np.asarray(hi, np.float64)
+    lo = np.asarray(lo, np.float64)
+    return _tensor(np.where(np.isfinite(hi), hi + lo, hi), torch.device(device))
+
+
+def f64_to_df_pair(x) -> tuple[np.ndarray, np.ndarray]:
+    """float64 values -> (hi, lo) float32 numpy limbs, as the JAX package
+    splits them (cpp_audio_tpu/analysis/chain.py _df_pair_np): hi is x
+    rounded to float32, lo the rest rounded to float32."""
+    x64 = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x, np.float64)
+    x64 = np.asarray(x64, np.float64)
+    hi = x64.astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        lo = np.where(np.isfinite(x64), x64 - hi.astype(np.float64), 0.0)
+    return hi, lo.astype(np.float32)
+
+
 def _tensor(a, dev: torch.device) -> torch.Tensor:
     """Copy of an array-like as a tensor on `dev` (the copy makes it
     writable; jax arrays hand numpy read-only views)."""

@@ -23,8 +23,8 @@ Layout: like the reference's fixed 127-voice pool (rt.resynth.lib.cpp:208),
 notes are packed into polyphony SLOTS; the renderer computes
 (n_slots, stride) per control frame.
 
-Port of cpp_audio_tpu/models/resynth_bank.py, float32 (16-field table)
-branch; the 17-field df-phase branch comes with the float64 fidelity chain.
+Port of cpp_audio_tpu/models/resynth_bank.py: the 16-field table and the
+fidelity chain's 17-field one, whose phase advance is computed in float64.
 The host table packer is copied. The render drops the JAX package's
 lax.cond split ladder and bounds memory by rendering a chunk of frames at a
 time instead (eager PyTorch materialises every intermediate that XLA fused).
@@ -50,6 +50,10 @@ NEVER_FRAME = 10**9
 (_F_INC, _F_RATIO, _F_PHB, _F_VTGT, _F_VB, _F_ALPHA, _F_TP0, _F_TR0,
  _F_TOP, _F_A, _F_H, _F_D, _F_SUS, _F_R, _F_GL, _F_GR) = range(16)
 N_FIELDS = 16
+# the fidelity chain's table: field 16 holds the rest of the row increment,
+# inc - float32(inc), so field 0 + field 16 is the increment
+_F_INC_LO = 16
+N_FIELDS_DF = 17
 
 
 @dataclass
@@ -222,22 +226,47 @@ def _build_slot_tables(notes: list[TrackedNote], n_frames: int,
     return table
 
 
+def _phase_trajectory(inc, ratio, phb, k1, S: int):
+    """Wrapped phases phb + Dphi(k) of a tile, in the dtype of its inputs:
+    Dphi(k) = (inc/lambda) * expm1(lambda*(k+1)), lambda = ratio/S, or
+    inc*(k+1) where the glide is flat."""
+    lam = ratio / S
+    small = torch.abs(ratio) < 1e-7
+    adv = torch.where(
+        small, inc * k1,
+        (inc / torch.where(small, 1.0, lam)) * torch.expm1(lam * k1))
+    return oscillators.wrap_phase(phb + adv)
+
+
 def _render_slots(table: torch.Tensor, *, stride: int,
                   dtype: str) -> torch.Tensor:
-    """(n_frames, P, 16) -> (n_frames, stride, 2) stereo, float32 or float64.
+    """(n_frames, P, 16 or 17) -> (n_frames, stride, 2) stereo, float32 or
+    float64.
 
     One (frames, P, stride) tile per chunk of frames; the chunk is sized so
     each intermediate stays near _RENDER_CHUNK_ELEMS elements.
+
+    A 17-field table (the fidelity chain's, analysis/device_tracker
+    build_tables_device_df) carries the rest of the row increment in field
+    16: the increment is field 0 + field 16. A float32 render then computes
+    the per-sample phase advance, glide included, in float64 from that
+    increment and the float64 phase and ratio, wraps it, and only then casts
+    it to float32 for the sine; volumes, envelopes and gains stay float32
+    (JAX resynth_bank.py:276-342, there in df32 pairs on a (slot, k1, k0)
+    lane layout that the TPU needed). A float64 render adds field 16 to
+    field 0, as JAX does (:341-342).
     """
-    if table.shape[2] != N_FIELDS:
-        raise ValueError(f"expected a {N_FIELDS}-field slot table, got "
-                         f"{table.shape[2]} fields (the df-phase table is "
-                         "not ported yet)")
+    if table.shape[2] not in (N_FIELDS, N_FIELDS_DF):
+        raise ValueError(f"expected a {N_FIELDS}- or {N_FIELDS_DF}-field slot "
+                         f"table, got {table.shape[2]} fields")
+    df_phase = table.shape[2] == N_FIELDS_DF
     wdt = dtype_of(dtype)
+    f64 = torch.float64
     n, P = table.shape[0], table.shape[1]
     S = stride
     chunk = max(1, _RENDER_CHUNK_ELEMS // max(1, P * S))
     k1 = torch.arange(1, S + 1, dtype=wdt, device=table.device)  # k + 1
+    k1_64 = torch.arange(1, S + 1, dtype=f64, device=table.device)
     out = torch.empty((n, S, 2), dtype=wdt, device=table.device)
     for f0 in range(0, n, chunk):
         tab = table[f0:f0 + chunk].to(wdt)
@@ -247,11 +276,16 @@ def _render_slots(table: torch.Tensor, *, stride: int,
         gains = tab[:, :, _F_GL:_F_GR + 1]
 
         lam = ratio / S
-        small = torch.abs(ratio) < 1e-7
-        adv = torch.where(
-            small, incf * k1,
-            (incf / torch.where(small, 1.0, lam)) * torch.expm1(lam * k1))
-        phases = oscillators.wrap_phase(phb + adv)
+        if df_phase:
+            t64 = table[f0:f0 + chunk].to(f64)
+            c64 = lambda i: t64[:, :, i:i + 1]  # noqa: E731
+            inc64 = c64(_F_INC) + c64(_F_INC_LO)
+            phases = _phase_trajectory(inc64, c64(_F_RATIO), c64(_F_PHB),
+                                       k1_64, S).to(wdt)
+            if wdt == f64:
+                incf = inc64
+        else:
+            phases = _phase_trajectory(incf, ratio, phb, k1, S)
         # power(1-alpha, k+1) as exp((k+1)*log1p(-alpha)), the log per slot
         vol = vtgt + (vb - vtgt) * torch.exp(k1 * torch.log1p(-alpha))
         tp = tp0 + (k1 - 1.0)

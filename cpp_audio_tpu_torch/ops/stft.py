@@ -92,6 +92,38 @@ def _peaks(sqmag: torch.Tensor, *, sample_rate: int, fft_length: int):
     return is_peak, freq, mag_db
 
 
+def _top_k_lanes(score: torch.Tensor, k: int, *carried: torch.Tensor):
+    """The selection every top-k peak function shares: the k highest
+    scores of each row, the earliest lane winning ties, returned in lane
+    order with the -inf entries after the finite ones (stable: lane order
+    among them). Returns (top score, top lane (int64), *top carried), each
+    (rows, k).
+
+    Adjacent bins can never both be peaks (is_peak needs db > prev), so the
+    row is first pair-reduced to half width exactly as the JAX package does;
+    the selection is then a STABLE sort (torch.topk is not stable). Lane
+    order is frequency order: peak bins are >= 2 apart and QIFFT deltas are
+    clipped to +-0.5 bin."""
+    lane = torch.arange(score.shape[-1], device=score.device).expand_as(score)
+    chans = (lane,) + carried
+    if score.shape[-1] % 2:
+        score = torch.nn.functional.pad(score, (0, 1), value=-torch.inf)
+        chans = tuple(torch.nn.functional.pad(c, (0, 1)) for c in chans)
+    pick = score[:, ::2] >= score[:, 1::2]
+    s2 = torch.where(pick, score[:, ::2], score[:, 1::2])
+    c2 = [torch.where(pick, c[:, ::2], c[:, 1::2]) for c in chans]
+    if s2.shape[-1] < k:
+        s2 = torch.nn.functional.pad(s2, (0, k - s2.shape[-1]), value=-torch.inf)
+        c2 = [torch.nn.functional.pad(c, (0, k - c.shape[-1])) for c in c2]
+    order = torch.sort(s2, dim=-1, descending=True, stable=True).indices[:, :k]
+    top_s = torch.gather(s2, -1, order)
+    top_c = [torch.gather(c, -1, order) for c in c2]
+    key = torch.where(torch.isfinite(top_s), top_c[0], score.shape[-1])
+    by_lane = torch.sort(key, dim=-1, stable=True).indices
+    return (torch.gather(top_s, -1, by_lane),
+            *(torch.gather(c, -1, by_lane) for c in top_c))
+
+
 def _top_peaks(sqmag: torch.Tensor, *, sample_rate: int, fft_length: int,
                k: int):
     """Top-k spectral peaks per frame -> (freq, mag_db), each (n_frames, k).
@@ -101,28 +133,96 @@ def _top_peaks(sqmag: torch.Tensor, *, sample_rate: int, fft_length: int,
       - output in frequency order within each frame;
       - entries with no peak carry -inf magnitude and come after the finite
         ones, in bin order.
-    Adjacent bins can never both be peaks (is_peak needs db > prev), so the
-    spectrum is first pair-reduced to half width exactly as the JAX package
-    does; the selection is then a STABLE sort (torch.topk is not stable).
     """
     is_peak, freq, mag_db = _peaks(sqmag, sample_rate=sample_rate,
                                    fft_length=fft_length)
-    score = torch.where(is_peak, mag_db, -torch.inf)
-    if score.shape[-1] % 2:
-        score = torch.nn.functional.pad(score, (0, 1), value=-torch.inf)
-        freq = torch.nn.functional.pad(freq, (0, 1))
-    se, so = score[:, ::2], score[:, 1::2]
-    pick = se >= so
-    s2 = torch.where(pick, se, so)
-    f2 = torch.where(pick, freq[:, ::2], freq[:, 1::2])
     # the score IS the winner's mag_db (only peaks can win)
-    order = torch.sort(s2, dim=-1, descending=True, stable=True).indices[:, :k]
-    top_db = torch.gather(s2, -1, order)
-    top_freq = torch.gather(f2, -1, order)
-    # frequency order within each frame, -inf entries last (stable: bin order)
-    key = torch.where(torch.isfinite(top_db), top_freq, torch.inf)
-    by_freq = torch.sort(key, dim=-1, stable=True).indices
-    return torch.gather(top_freq, -1, by_freq), torch.gather(top_db, -1, by_freq)
+    top_db, _lane, top_freq = _top_k_lanes(
+        torch.where(is_peak, mag_db, -torch.inf), k, freq)
+    return top_freq, top_db
+
+
+def _top_bins(sq: torch.Tensor, *, sample_rate: int, fft_length: int, k: int):
+    """float32 top-k peak SELECTION -> (bins (F, k) int64 ascending, mag_db
+    (F, k) with -inf padding and bin 0 on it): `_top_peaks`'s is_peak,
+    score and stable top-k, carrying the integer bin instead of the QIFFT
+    frequency (JAX stft.py:278). The selection front end of the hybrid
+    double-grade analysis (ops/dfft_hybrid.hybrid_peaks_df32)."""
+    is_peak, _freq, mag_db = _peaks(sq, sample_rate=sample_rate,
+                                    fft_length=fft_length)
+    top_db, bins = _top_k_lanes(torch.where(is_peak, mag_db, -torch.inf), k)
+    return torch.where(torch.isfinite(top_db), bins, 0), top_db
+
+
+def frames_sqmag_f64(frames: torch.Tensor, window: torch.Tensor,
+                     scale: torch.Tensor, *, fft_length: int) -> torch.Tensor:
+    """(F, nb) float64 squared magnitudes of float32 frames: the frames
+    times the float64 window, one float64 rfft (cuFFT D2Z on the card),
+    times the float64 unit-sine scale (2 / sum(w))^2. The double-grade
+    spectrum the JAX package assembled from df32 pairs (ops/dfft.py,
+    ops/dfft_hybrid.py) on a chip without float64."""
+    spec = torch.fft.rfft(frames.to(torch.float64) * window[None, :],
+                          n=fft_length)
+    return (spec.real ** 2 + spec.imag ** 2) * scale
+
+
+def _qifft_df(bins, sp, sc, sn, fin, *, nb: int, sample_rate: int,
+              fft_length: int):
+    """QIFFT refinement at selected bins, in float64 (JAX stft.py:405,
+    there in df32 pairs): a parabola through the dB values of the (b-1, b,
+    b+1) squared magnitudes sp, sc, sn, term for term as `_peaks`. The edge
+    guards stay: -600 dB sentinels at bin 0 and bin nb-1, |denom| > 1e-12,
+    delta clipped to +-0.5. fin: validity mask (False lanes get -inf mag).
+    Returns (freq, mag_db), float64 (F, k)."""
+    eps = 1e-30
+    db = lambda x: 10.0 * torch.log10(torch.clamp(x, min=eps))  # noqa: E731
+    dbp = torch.where(bins == 0, -600.0, db(sp))
+    dbc = db(sc)
+    dbn = torch.where(bins == nb - 1, -600.0, db(sn))
+    denom = dbp - 2.0 * dbc + dbn
+    pmn = dbp - dbn
+    ok = torch.abs(denom) > 1e-12
+    delta = torch.where(ok, 0.5 * pmn / torch.where(ok, denom, 1.0), 0.0)
+    delta = torch.clamp(delta, -0.5, 0.5)
+    freq = (delta + bins.to(torch.float64)) * (sample_rate / fft_length)
+    mag = dbc - 0.25 * (pmn * delta)
+    return freq, torch.where(fin, mag, -torch.inf)
+
+
+def _top_peaks_df(sq: torch.Tensor, *, sample_rate: int, fft_length: int,
+                  k: int):
+    """Double-grade top-k peaks of a float64 squared-magnitude spectrum
+    (the "ladder" analysis; JAX stft.py:318, there from a df32 spectrum).
+    Returns (freq, mag_db), float64 (F, k), frequency-sorted, -inf padding.
+
+    is_peak compares the float64 sqmag exactly; the selection score is the
+    float32 dB of the sqmag, QIFFT-interpolated in float32 as JAX computes
+    it (:361-372); the stable top-k carries each winner's float64 (b-1, b,
+    b+1) triple, and the QIFFT at it runs in float64 (`_qifft_df`)."""
+    F, nb = sq.shape
+    eps = 1e-30
+    zero = sq.new_zeros((F, 1))
+    sq_p = torch.cat([zero, sq[:, :-1]], dim=1)
+    sq_n = torch.cat([sq[:, 1:], zero], dim=1)
+    lane = torch.arange(nb, device=sq.device)
+    at_first = lane[None, :] == 0
+    at_last = lane[None, :] == nb - 1
+    sq_hi = sq.to(torch.float32)
+    is_peak = (((sq_p < sq) | at_first) & (~(sq < sq_n) | at_last)
+               & (sq_hi > eps))
+    db32 = 10.0 * torch.log10(torch.clamp(sq_hi, min=eps))
+    edge = torch.full_like(db32[:, :1], -600.0)
+    prev32 = torch.cat([edge, db32[:, :-1]], dim=1)
+    nxt32 = torch.cat([db32[:, 1:], edge], dim=1)
+    denom32 = prev32 - 2.0 * db32 + nxt32
+    ok = torch.abs(denom32) > 1e-12
+    delta32 = torch.where(ok, 0.5 * (prev32 - nxt32)
+                          / torch.where(ok, denom32, 1.0), 0.0)
+    mag32 = db32 - 0.25 * (prev32 - nxt32) * torch.clamp(delta32, -0.5, 0.5)
+    top_s, bins, sp, sc, sn = _top_k_lanes(
+        torch.where(is_peak, mag32, -torch.inf), k, sq_p, sq, sq_n)
+    return _qifft_df(bins, sp, sc, sn, torch.isfinite(top_s), nb=nb,
+                     sample_rate=sample_rate, fft_length=fft_length)
 
 
 def top_peaks_to_lists(freq, mag_db) -> list[list[tuple[float, float]]]:

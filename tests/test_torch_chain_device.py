@@ -105,14 +105,23 @@ def test_prepare_returns_framed_step():
     assert torch.equal(flat[stride:2 * stride], framed[1])
 
 
-def test_df32_waits_for_a9():
-    bank, scfg = _workload(SR, SR)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tchain.run_offline_chain_device(
-            interop.voicebank_from_numpy(bank), SR,
-            tresynth.ResynthConfig(sample_rate=SR, dtype="df32"),
-            tvocoder.VocoderParams(sample_rate=SR), CARRIER[:SR],
-            block_size=scfg.block_size, device="cpu")
+def test_df32_device_chain_returns_framed_stereo():
+    """The fidelity chain (dtype "df32") through prepare_offline_chain_device:
+    step() gives the framed (F, S, 2) float32 render, the float32 vocoder
+    mix and a dropped scalar (its parity: tests/test_torch_df_chain.py)."""
+    n = SR // 2
+    bank, scfg = _workload(SR, n)
+    rcfg = tresynth.ResynthConfig(sample_rate=SR, dtype="df32")
+    step, n_frames = tchain.prepare_offline_chain_device(
+        interop.voicebank_from_numpy(bank), n, rcfg,
+        tvocoder.VocoderParams(sample_rate=SR), CARRIER[:n],
+        block_size=scfg.block_size, device="cpu")
+    framed, mix, dropped = step()
+    stride = tresynth._render_config(rcfg).stride
+    assert framed.shape == (n_frames + 8, stride, 2)
+    assert framed.dtype == mix.dtype == torch.float32
+    assert mix.dim() == 1 and dropped.dim() == 0 and int(dropped) == 0
+    assert bool(torch.isfinite(framed).all()) and float(framed.abs().max()) > 1e-3
 
 
 def _tone_signal(n):

@@ -113,6 +113,12 @@ def test_render_tracked_matches():
 
 
 def test_df_phase_table_is_refused():
-    table = torch.zeros((2, 4, 17))
-    with pytest.raises(ValueError):
-        trb._render_slots(table, stride=16, dtype="float32")
+    """The render takes the 16-field table and the fidelity chain's
+    17-field df-phase table (tests/test_torch_df_chain.py); a table with
+    any other field count is refused."""
+    for fields in (15, 18):
+        with pytest.raises(ValueError, match="16- or 17-field"):
+            trb._render_slots(torch.zeros((2, 4, fields)), stride=16,
+                              dtype="float32")
+    out = trb._render_slots(torch.zeros((2, 4, 17)), stride=16, dtype="float32")
+    assert out.shape == (2, 16, 2)
