@@ -54,6 +54,25 @@ Phases (any failure exits non-zero and prints no result):
      <= -80 dB, vocoded <= -120 dB, e2e resynth printed, note_e2e_pass.
   9. df reference, 2 s: the df chain on cuda against the CPU, at the bars
      of 6.
+ 10. live duplex path (analysis/streaming.LiveResynth with the vocoder leg
+     and a CarrierSynth holding a 110 Hz square from t = 0): (a) the 60 s
+     headline mixdown fed and pulled in 512-sample steps on cuda: per-pull
+     latency (host clock around pull + its .cpu() copy, and around feed +
+     pull + copy) p50 / p99 / max after the first 2 s against the 11.61 ms
+     budget, split by whether a window fired; wall and realtime factor;
+     stats; kernel launches (one per pull with voices); checks 665 windows,
+     launches > 0, finite (T, 2), both legs above 1e-3; synchronising
+     calls per pull and a profile of ~1 s of steps on a fresh run over the
+     first 4 s; StreamingVocoder.process on device tensors must make no
+     synchronising call; the carrier's float32 gap to float64 at 59 s.
+     (b) the kernel against its plain version on the tables of the run's
+     last pull with voices (B = 512, negative press), timed amortized
+     beside its bound. (c) StreamingSynth in 512-sample pulls over 10 s of
+     held, retuned and released notes against render_schedule, both on
+     cuda, bar 2e-5. (d) the 2 s live path on cuda against the CPU (stats
+     equal, output < 2e-3 of peak, vocoded leg atol 1e-4), then
+     deduce_notes + resynth_deduced on 12 s of the mixdown, cuda against
+     the CPU (same notes, render < 2e-3 of peak).
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -62,6 +81,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -844,6 +864,478 @@ def phase_df_reference():
     _hold_resynth("df chain, 2 s", "cpu df chain", g.resynth, c.resynth)
 
 
+LIVE_BLOCK = 512                     # samples per pull (run_duplex's default)
+LIVE_BUDGET_MS = 1e3 * LIVE_BLOCK / SR  # 11.61 ms: one pull's share of real time
+LIVE_LATE = 50 * SR                  # "late" pulls: the input falls silent near 57 s
+
+
+def headline_mixdown(n, dev):
+    """The headline workload's mono mixdown (the chain's synth leg), as host
+    float64: the live path's captured input."""
+    from cpp_audio_tpu_torch.models import sine_synth, voicebank
+
+    sch, cfg = make_synth_workload(SR, n)
+    out = voicebank.render_bank(sine_synth.bank_from_schedule(sch, cfg), n,
+                                block_size=cfg.block_size, device=dev)
+    return out.sum(dim=1).cpu().numpy().astype(np.float64)
+
+
+def make_live(dev, *, seed=0, osc=None):
+    """LiveResynth as the chain is configured (ResynthConfig and
+    VocoderParams of _chain_inputs, 127 voices) with its vocoder leg driven
+    by a CarrierSynth holding a 110 Hz note from t = 0 (the headline's
+    carrier, square by default)."""
+    from cpp_audio_tpu_torch.analysis import resynth, streaming, vocoder
+    from cpp_audio_tpu_torch.core import events
+    from cpp_audio_tpu_torch.models import carrier
+
+    car = carrier.CarrierSynth(carrier.CarrierSynthConfig(
+        sample_rate=SR, osc=carrier.CarrierOscMix(**(osc or {"square": 1.0})),
+        seed=seed), device=dev)
+    car.on_event(events.Event(events.EventType.NOTE_ON, 0, 1, 110.0, 1.0))
+    return streaming.LiveResynth(
+        resynth.ResynthConfig(sample_rate=SR, analysis_volume=1.0), n_voices=127,
+        vocoder_params=vocoder.VocoderParams(sample_rate=SR), carrier_synth=car,
+        device=dev)
+
+
+def record_legs(live):
+    """Keep each pull's synth leg and vocoder output (references only: no
+    device work is added), the bank with the most notes of the pulls from
+    LIVE_LATE on ("late", the latest of equals) and of the whole run
+    ("busiest")."""
+    legs = {"synth": [], "vocoder": [], "late": None, "busiest": None}
+    synth_compute, process, bank_at = (live.synth.compute, live.vocoder.process,
+                                       live.synth.bank_at)
+
+    def compute(t0, n):
+        legs["synth"].append(out := synth_compute(t0, n))
+        return out
+
+    def vocode(mod, car):
+        legs["vocoder"].append(out := process(mod, car))
+        return out
+
+    def keep(key, t0, b, notes):
+        if legs[key] is None or notes >= legs[key][2]:
+            legs[key] = (t0, b, notes)
+
+    def bank(t0):
+        b = bank_at(t0)
+        if b is not None:
+            notes = int((b.amp > 0).sum())
+            keep("busiest", t0, b, notes + 0.5 * (legs["busiest"] is None))
+            if t0 >= LIVE_LATE:
+                keep("late", t0, b, notes)
+        return b
+
+    live.synth.compute, live.vocoder.process, live.synth.bank_at = compute, vocode, bank
+    return legs
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def phase_live(card: str) -> dict:
+    """Phase 10: the live duplex path on cuda. (a) the headline mixdown, 60
+    s, fed and pulled in 512-sample steps through LiveResynth with the
+    vocoder leg; (b) the kernel against its plain version on a late pull's
+    tables; (c) StreamingSynth streamed against the offline render; (d) the
+    live path and note deduction on cuda against the CPU. Returns the
+    kernels-line keys it measures."""
+    import torch
+
+    from cpp_audio_tpu_torch.models import voicebank
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+
+    n = int(SR * SECONDS)
+    sig = headline_mixdown(n, "cuda")
+    live = make_live("cuda")
+    legs = record_legs(live)
+    pulls, feeds, fired, outs = [], [], [], []
+    x = torch.zeros(16, device="cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x = x + 1.0
+    torch.cuda.synchronize()
+    print(f"[live] host dispatch of a tiny CUDA add: "
+          f"{(time.perf_counter() - t0) / 2000 * 1e6:.2f} us per op on this host")
+    # diagnostics of the long pulls: the interpreter's collections of its
+    # oldest generation (when, how long) and the CUDA caching allocator's
+    # new device allocations and retries over the run
+    collections, gc_start = [], []
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            if phase == "start":
+                gc_start.append(time.perf_counter())
+            elif gc_start:
+                collections.append((len(pulls), time.perf_counter() - gc_start.pop()))
+
+    mem0 = torch.cuda.memory_stats()
+    gc.callbacks.append(on_gc)
+    cv.LAUNCHES = 0
+    t_run = time.perf_counter()
+    try:
+        for i in range(0, n, LIVE_BLOCK):
+            blk = sig[i:i + LIVE_BLOCK]
+            w = live.stats.windows
+            t0 = time.perf_counter()
+            live.feed(blk)
+            t1 = time.perf_counter()
+            out = live.pull(len(blk)).cpu()
+            t2 = time.perf_counter()
+            feeds.append(t1 - t0)
+            pulls.append(t2 - t1)
+            fired.append(live.stats.windows > w)
+            outs.append(out)
+    finally:
+        gc.callbacks.remove(on_gc)
+    wall = time.perf_counter() - t_run
+    launches = cv.LAUNCHES
+    mem1 = torch.cuda.memory_stats()
+    print(f"[live] during the run: {len(collections)} collections of the oldest "
+          "Python generation (pull, ms: "
+          + ", ".join(f"{p} {d * 1e3:.1f}" for p, d in collections[:8])
+          + f"); CUDA allocator: {mem1.get('num_device_alloc', 0) - mem0.get('num_device_alloc', 0)} "
+          f"new device allocations, {mem1.get('num_alloc_retries', 0) - mem0.get('num_alloc_retries', 0)} "
+          "retries")
+    out = torch.cat(outs)
+    synth_leg = torch.cat(legs["synth"])
+    voc_leg = torch.cat(legs["vocoder"])
+    peak_s, peak_v = float(synth_leg.abs().max()), float(voc_leg.abs().max())
+    st = live.stats
+    print(f"[live] 60 s headline mixdown in {len(pulls)} pulls of {LIVE_BLOCK} "
+          f"(last {n - LIVE_BLOCK * (len(pulls) - 1)}): wall {wall:.3f} s, realtime "
+          f"factor {SECONDS / wall:.2f}x on {card}; stats {vars(st)}; synth "
+          f"launches {launches}; output {tuple(out.shape)} {out.dtype}, peaks "
+          f"resynth leg {peak_s:.4f}, vocoded leg {peak_v:.4f}")
+    skip = int(2 * SR) // LIVE_BLOCK
+    steps = [f + p for f, p in zip(feeds, pulls)]
+    for name, xs in (("pull(512) + .cpu()", pulls), ("feed + pull + .cpu()", steps)):
+        xs, fw = xs[skip:], fired[skip:]
+        win = [x for x, f in zip(xs, fw) if f]
+        quiet = [x for x, f in zip(xs, fw) if not f]
+        over = lambda v: sum(x * 1e3 > LIVE_BUDGET_MS for x in v)  # noqa: E731
+        worst = int(np.argmax(xs))
+        print(f"[live] {name}, {len(xs)} pulls after the first 2 s: p50 "
+              f"{_pct(xs, 50):.3f} ms, p99 {_pct(xs, 99):.3f} ms, max "
+              f"{max(xs) * 1e3:.3f} ms (pull {worst + skip}, window "
+              f"{fw[worst]}); over the {LIVE_BUDGET_MS:.2f} ms budget: "
+              f"{over(xs)}; window pulls {len(win)}: p50 {_pct(win, 50):.3f} p99 "
+              f"{_pct(win, 99):.3f} ms, {over(win)} over; others {len(quiet)}: p50 "
+              f"{_pct(quiet, 50):.3f} p99 {_pct(quiet, 99):.3f} ms, {over(quiet)} over")
+    if st.windows != 665 or launches <= 0:
+        raise RuntimeError(f"live run: {st.windows} windows (665 expected), "
+                           f"{launches} kernel launches")
+    if not (bool(torch.isfinite(out).all()) and out.shape == (n, 2)):
+        raise RuntimeError(f"live output {tuple(out.shape)} is not finite (T, 2)")
+    if not (peak_s > 1e-3 and peak_v > 1e-3):
+        raise RuntimeError(f"a live leg is silent: {peak_s}, {peak_v}")
+
+    # (b) the kernel against its plain version on a late pull's tables and
+    # on the run's busiest pull's, and its time at both
+    err, times = 0.0, {}
+    for key in ("late", "busiest"):
+        t_pull, bank, n_notes = legs[key]
+        args, stat = voicebank.prepare_bank_arrays(bank, LIVE_BLOCK, LIVE_BLOCK,
+                                                   device="cuda")
+        err = max(err, _hold(f"(d) live pull ({key}) at t0 = {t_pull} "
+                             f"({t_pull / SR:.2f} s), {int(n_notes)} notes, press min "
+                             f"{int(bank.press.min())}", args, stat))
+        ms = cuda_ms_amortized(lambda: cv.render_blocks_cuda(*args, **stat))
+        ms_call = cuda_ms(lambda: cv.render_blocks_cuda(*args, **stat))
+        bound = cv.kernel_bound(args[0], args[1], n_channels=2, **stat)
+        times[key] = (ms, bound["bound_ms"])
+        print(f"[live kernel] {key} pull ({args[0].shape[0]}, 8) x {LIVE_BLOCK}: "
+              f"{ms:.5f} ms amortized, {ms_call:.5f} ms per synchronised call; bound "
+              f"{bound['bound_ms']:.6f} ms by {bound['bound_by']} "
+              f"({bound['live_voice_samples']} live voice-samples, {bound['bytes']} "
+              f"bytes); share {bound['bound_ms'] / ms:.4f} amortized")
+    ms_live, bound_live = times["busiest"]
+    live_diagnostics(sig)
+    carrier_late_gap()
+    phase_live_streamed_vs_offline()
+    launches_notes = phase_live_reference()
+    return {"launches_live": launches, "launches_notes": launches_notes,
+            "ms_live": ms_live, "bound_live": bound_live,
+            "max_abs_err_live": err}
+
+
+def live_diagnostics(sig):
+    """Synchronising calls per pull (sync debug mode) over 50 steps that
+    include window pulls, the same with a pageable .cpu() of each output,
+    the vocoder alone on device tensors (must make none), and a profile of
+    ~1 s of steps: a fresh LiveResynth over the first 4 s of the input."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpp_audio_tpu_torch.analysis import streaming, vocoder
+
+    live = make_live("cuda")
+    blocks = [sig[i:i + LIVE_BLOCK] for i in range(0, 4 * SR, LIVE_BLOCK)]
+
+    def step(blk):
+        live.feed(blk)
+        return live.pull(len(blk))
+
+    for blk in blocks[:200]:
+        step(blk)
+    torch.cuda.synchronize()
+    w0 = live.stats.windows
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for blk in blocks[200:250]:
+                step(blk)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    hits = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    where = {}
+    for w in hits:
+        key = str(w.filename).rsplit("/", 1)[-1] + f":{w.lineno}"
+        where[key] = where.get(key, 0) + 1
+    print(f"[live syncs] 50 steps (feed + pull, {live.stats.windows - w0} window "
+          f"pulls): {len(hits)} synchronising calls, {len(hits) / 50:.2f} per pull: "
+          + ", ".join(f"{k} x{v}" for k, v in sorted(where.items())))
+
+    sv = streaming.StreamingVocoder(vocoder.VocoderParams(sample_rate=SR), device="cuda")
+    mod = torch.as_tensor(sig[:20 * LIVE_BLOCK], device="cuda")
+    car = torch.sign(torch.sin(2 * np.pi * 110.0 * torch.arange(
+        20 * LIVE_BLOCK, device="cuda", dtype=torch.float64) / SR))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(0, 20 * LIVE_BLOCK, LIVE_BLOCK):
+                sv.process(mod[i:i + LIVE_BLOCK], car[i:i + LIVE_BLOCK])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    v_hits = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+    print(f"[live syncs] StreamingVocoder.process on device tensors, 20 blocks "
+          f"({20 * LIVE_BLOCK // sv.stride} carrier windows): {len(v_hits)} "
+          "synchronising calls")
+    if v_hits:
+        raise RuntimeError("StreamingVocoder.process synchronised on device tensors: "
+                           f"{[str(w.message) for w in v_hits[:3]]}")
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for blk in blocks[250:336]:
+                step(blk).cpu()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    except Exception as exc:  # noqa: BLE001 - diagnostic only
+        print(f"[live profile] not measured ({type(exc).__name__}: {exc})")
+        return
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e3
+    print(f"[live profile] 86 steps (~1 s of audio): device kernels {busy:.3f} ms of "
+          f"{wall * 1e3:.3f} ms wall: device idle share "
+          f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}; "
+          f"{sum(r[2] for r in rows)} device activities")
+    for key, us, count in rows[:10]:
+        print(f"[live profile] {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def carrier_late_gap():
+    """The carrier's float32 closed form at t0 = 59 s against the same
+    voices at float64, on the card (a sine voice held from t = 50 and one
+    glided at t = 2000; continuous waveforms, so the gap is the phase's)."""
+    from cpp_audio_tpu_torch.core import events
+    from cpp_audio_tpu_torch.models import carrier
+
+    outs = {}
+    for dt in ("float32", "float64"):
+        s = carrier.CarrierSynth(carrier.CarrierSynthConfig(
+            sample_rate=SR, osc=carrier.CarrierOscMix(sine=1.0, triangle=0.4),
+            seed=3, dtype=dt), device="cuda")
+        s.on_event(events.Event(events.EventType.NOTE_ON, 50, 1, 440.0, 0.7))
+        s.on_event(events.Event(events.EventType.NOTE_ON, 900, 2, 110.0, 0.5))
+        s.on_event(events.mk_note_change(2000, 1, 470.0, 0.6))
+        outs[dt] = (s.compute(59 * SR, 2048).double(), s.compute(SR // 2, 2048).double())
+    late = float((outs["float32"][0] - outs["float64"][0]).abs().max())
+    early = float((outs["float32"][1] - outs["float64"][1]).abs().max())
+    print(f"[carrier] float32 against float64 on the card: max|diff| {early:.3e} at "
+          f"t0 = 0.5 s, {late:.3e} at t0 = 59 s (peak "
+          f"{float(outs['float64'][0].abs().max()):.4f}; the float32 phase of the "
+          "JAX package's arithmetic)")
+
+
+def phase_live_streamed_vs_offline():
+    """(c) StreamingSynth pulled in 512-sample blocks over 10 s of held,
+    retuned and released notes, against sine_synth.render_schedule of the
+    same notes on the card (bar 2e-5). Retunes land on pull boundaries; the
+    offline reference renders each stretch between them with the notes'
+    frequency and phase-continuous start angle of that stretch
+    (voicebank.retuned_phase0)."""
+    import torch
+
+    from cpp_audio_tpu_torch.core import events, voices
+    from cpp_audio_tpu_torch.models import sine_synth, streaming_synth, voicebank
+    from cpp_audio_tpu_torch.ops import envelopes
+
+    n = 10 * SR
+    rng = np.random.default_rng(11)
+    cfg = sine_synth.SineSynthConfig(
+        sample_rate=SR, ahdsr=envelopes.AHDSR(attack=441, hold=100, decay=2000,
+                                              release=8820, sustain=0.7))
+    notes = {}
+    for i in range(24):
+        press = int(rng.uniform(0, 0.8 * n))
+        release = press + int(rng.uniform(0.2 * SR, 5 * SR)) if i % 3 else 2**62
+        notes[i] = dict(press=press, release=release, frequency=float(rng.uniform(60, 3000)),
+                        velocity=float(rng.uniform(0.3, 1.0)), pan=float(rng.uniform(-1, 1)),
+                        phase=0.0)
+    boundaries = [s * SR // LIVE_BLOCK * LIVE_BLOCK for s in (2, 5, 8)]
+    retunes = {b: [(i, notes[i]["frequency"] * float(rng.uniform(0.9, 1.1)),
+                    float(rng.uniform(0.3, 1.0))) for i in rng.choice(24, 8, replace=False)]
+               for b in boundaries}
+
+    synth = streaming_synth.StreamingSynth(cfg, n_voices=127, device="cuda")
+    pending = sorted([(v["press"], 0, i) for i, v in notes.items()]
+                     + [(v["release"], 1, i) for i, v in notes.items() if v["release"] < n])
+    streamed, k = [], 0
+    for t in range(0, n, LIVE_BLOCK):
+        for i, f, vel in retunes.get(t, []):
+            synth.on_event(events.mk_note_change(t, int(i), f, vel))
+        while k < len(pending) and pending[k][0] < t + LIVE_BLOCK:
+            when, kind, i = pending[k]
+            synth.on_event(events.mk_note_on(when, notes[i]["frequency"],
+                                             notes[i]["velocity"], note_id=i,
+                                             pan=notes[i]["pan"]) if kind == 0
+                           else events.mk_note_off(when, i))
+            k += 1
+        streamed.append(synth.compute(t, min(LIVE_BLOCK, n - t)))
+    streamed = torch.cat(streamed)
+
+    offline, edges = [], [0] + boundaries + [n]
+    for a, b in zip(edges[:-1], edges[1:]):
+        for i, f, vel in retunes.get(a, []):
+            v = notes[i]
+            # the streaming synth retunes the notes it holds: pressed in an
+            # earlier pull, not yet released (retunes precede this pull's events)
+            if v["press"] < a <= v["release"]:
+                v["phase"] = voicebank.retuned_phase0(
+                    v["press"], a, v["phase"], 2.0 * v["frequency"] / SR, 2.0 * f / SR)
+                v["frequency"], v["velocity"] = f, vel
+        sch = voices.schedule_from_notes(
+            [events.Note(i, v["press"], v["release"], v["frequency"], v["velocity"],
+                         v["pan"], phase=v["phase"]) for i, v in notes.items()], pad_to=8)
+        offline.append(sine_synth.render_schedule(sch, b, cfg, device="cuda")[a:b])
+    offline = torch.cat(offline)
+    err = float((streamed - offline).abs().max())
+    print(f"[live streamed] StreamingSynth, {n // LIVE_BLOCK + 1} pulls of {LIVE_BLOCK} "
+          f"over 10 s (24 notes, 16 released, {sum(map(len, retunes.values()))} retunes "
+          f"at 3 pull boundaries) against render_schedule on cuda: max|diff| "
+          f"{err:.3e}, peak {float(offline.abs().max()):.4f}")
+    if not (err <= KERNEL_BAR and float(offline.abs().max()) > 1e-2):
+        raise RuntimeError(f"streamed render disagrees with the offline one: {err}")
+
+
+def phase_live_reference() -> int:
+    """(d) The live path with its vocoder leg on cuda against the same run on
+    the CPU (plain versions), on the 2 s signal of make_chain_test_workload:
+    the same stats, output within 2e-3 of peak, vocoded leg atol 1e-4 (phase
+    6's bars); then deduce_notes on 12 s of the headline mixdown, cuda
+    against the CPU: with a float64 analysis the same notes (bounds equal,
+    pitch within 1e-3 semitone); with the default float32 one, whose FFTs
+    round differently on the two devices, at most 5% of the notes may flip
+    at a tracker knife-edge (printed); and resynth_deduced of one note list
+    on both, within 2e-3 of peak. Returns the kernel launches of the cuda
+    note render."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import notes, resynth
+    from cpp_audio_tpu_torch.models import sine_synth, voicebank
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+
+    n = 2 * SR
+    sch, cfg = make_chain_test_workload(SR, n)
+    sig = voicebank.render_bank(sine_synth.bank_from_schedule(sch, cfg), n,
+                                block_size=cfg.block_size, device="cpu"
+                                ).sum(dim=1).numpy().astype(np.float64)
+    runs = {}
+    for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+        live = make_live(dev, osc={"saw": 0.6, "noise": 0.2, "square": 0.3})
+        legs = record_legs(live)
+        out = live.run_duplex(sig, block_size=LIVE_BLOCK).cpu()
+        runs[where] = (vars(live.stats), out, torch.cat(legs["vocoder"]).cpu())
+    (sg, og, vg), (sc, oc, vc) = runs["card"], runs["cpu"]
+    peak = float(oc.abs().max())
+    dr = float((og - oc).abs().max()) / max(peak, 1e-9)
+    dv = float((vg - vc).abs().max())
+    print(f"[live reference] 2 s, cuda vs cpu: stats {sg} / {sc}; output "
+          f"max|diff|/peak {dr:.3e} (peak {peak:.4f}); vocoded leg max|diff| {dv:.3e}")
+    if not (sg == sc and peak > 1e-3 and dr < 2e-3 and dv <= 1e-4):
+        raise RuntimeError("the live path on cuda disagrees with the CPU")
+
+    fn = 12 * SR
+    mix = headline_mixdown(fn, "cuda")
+    found = {}
+    for dtype in ("float32", "float64"):
+        for where, dev in (("card", "cuda"), ("cpu", "cpu")):
+            cfg = resynth.ResynthConfig(sample_rate=SR, analysis_volume=1.0, dtype=dtype)
+            found[dtype, where] = notes.deduce_notes(mix, SR, min_db_span=-40.0,
+                                                     config=cfg, device=dev)
+    vmax = max(x.volume for x in found["float32", "cpu"])
+    for dtype in ("float32", "float64"):
+        only = _unmatched_notes(found[dtype, "card"], found[dtype, "cpu"])
+        print(f"[notes] 12 s headline mixdown, analysis {dtype}, dB span -40: "
+              f"{len(found[dtype, 'card'])} notes on cuda, {len(found[dtype, 'cpu'])} "
+              f"on cpu; unmatched (bounds equal, pitch within 1e-3 semitone) "
+              f"{len(only[0])} / {len(only[1])}")
+        for dev, xs in zip(("cuda", "cpu"), only):
+            for x in xs:
+                print(f"[notes]   only on {dev}: pitch {x.midi_pitch:.4f}, samples "
+                      f"{x.start_sample}-{x.end_sample}, "
+                      f"{20 * np.log10(x.volume / vmax):.1f} dB re the loudest")
+        if dtype == "float64" and (only[0] or only[1] or not found[dtype, "cpu"]):
+            raise RuntimeError("float64 note deduction on cuda disagrees with the CPU")
+        if dtype == "float32" and (len(only[0]) + len(only[1])
+                                   > 0.05 * len(found[dtype, "cpu"])):
+            raise RuntimeError("float32 note deduction on cuda disagrees with the CPU "
+                               "beyond tracker knife-edges")
+    # the render: one note list (the CPU's, default float32 analysis) on both
+    listed = found["float32", "cpu"]
+    stride = resynth.ResynthConfig().stride
+    cv.LAUNCHES = 0
+    t0 = time.perf_counter()
+    g = notes.resynth_deduced(listed, sample_rate=SR, stride=stride, device="cuda")
+    torch.cuda.synchronize()
+    t_cuda, launches = time.perf_counter() - t0, cv.LAUNCHES
+    c = notes.resynth_deduced(listed, sample_rate=SR, stride=stride, device="cpu")
+    peak = float(c.abs().max())
+    dr = float((g.cpu() - c).abs().max()) / max(peak, 1e-9)
+    print(f"[notes] resynth_deduced of {len(listed)} notes, {tuple(g.shape)}: cuda "
+          f"{t_cuda * 1e3:.3f} ms ({launches} kernel launches) against the CPU: "
+          f"max|diff|/peak {dr:.3e} (peak {peak:.4f})")
+    if not (g.shape == c.shape and dr < 2e-3 and launches > 0):
+        raise RuntimeError("resynth_deduced on cuda disagrees with the CPU")
+    return launches
+
+
+def _unmatched_notes(a, b):
+    """The notes of each list with no twin in the other: the same sample
+    bounds and a pitch within 1e-3 semitone."""
+    def twin(x, ys):
+        return any((x.start_sample, x.end_sample) == (y.start_sample, y.end_sample)
+                   and abs(x.midi_pitch - y.midi_pitch) < 1e-3 for y in ys)
+
+    return [x for x in a if not twin(x, b)], [y for y in b if not twin(y, a)]
+
+
 def main() -> int:
     try:
         card = card_line()
@@ -868,6 +1360,7 @@ def main() -> int:
         launches_df = phase_df_chain(card)
         phase_df_fidelity()
         phase_df_reference()
+        measured.update(phase_live(card))
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

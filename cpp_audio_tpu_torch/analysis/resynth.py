@@ -469,6 +469,7 @@ def build_tables_native(freq, mag_db, config: ResynthConfig, total_frames: int,
 
 
 def resynthesize(signal, config: ResynthConfig, *,
+                 prefer_native: bool = True,
                  implementation: str = "auto",
                  device="cuda") -> torch.Tensor:
     """Full offline chain: mono signal -> stereo resynthesis (T, 2) tensor.
@@ -479,12 +480,16 @@ def resynthesize(signal, config: ResynthConfig, *,
     configs, which go to "native"; "device" forces the device tracker;
     "native" takes the fused C++ table packer when the library is available
     and the draws are sequential (else the Python tracker); "python" forces
-    the pure-Python tracker. dtype "df32" routes as in the JAX package: the
+    the pure-Python tracker. prefer_native=False sends "auto" to "python"
+    and keeps `track` off the C++ pipeline, as in the JAX package (resynth.py:
+    474-475, 503-505). dtype "df32" routes as in the JAX package: the
     analysis runs at float64 and the render config's dtype is float32; the
     device route tracks with the fidelity tracker (a 17-field table).
     """
     if implementation not in ("auto", "device", "native", "python"):
         raise ValueError(f"unknown implementation {implementation!r}")
+    if not prefer_native and implementation == "auto":
+        implementation = "python"
     if (implementation == "auto"
             and config.harmonize_semantics == "reference"
             and (config.pitch_harmonize_pre_autotune != 0.0
@@ -512,5 +517,6 @@ def resynthesize(signal, config: ResynthConfig, *,
             return resynth_bank.render_table(table, rcfg, device=device)
     peaks = analyze(signal, config, device=device)
     notes, _stats, _dropped = track(
-        peaks, config, prefer_native=implementation != "python")
+        peaks, config,
+        prefer_native=prefer_native and implementation != "python")
     return resynth_bank.render_tracked(notes, len(peaks), rcfg, device=device)

@@ -13,8 +13,8 @@ log-spaced bands 100..20000 Hz — rt.resynth.lib.cpp:987-992):
              vocoder.cpp:84-93)
 
 Port of cpp_audio_tpu/analysis/vocoder.py (both fast modulator paths — the
-decimated single-sideband one and the full-band one — the carrier vocode and
-`vocode`). The one-hot "strided sample" matmuls of the JAX package (a TPU
+decimated single-sideband one and the full-band one — the exact per-window
+modulator, the carrier vocode and `vocode`). The one-hot "strided sample" matmuls of the JAX package (a TPU
 gather workaround) are plain indexing here, its chunked cumsum is
 torch.cumsum, and the matmul DFT is dropped.
 """
@@ -56,6 +56,12 @@ class VocoderParams:
     # the reference's 4-sigma Gaussian (vocoder.cpp:241); "rectangular" is
     # kept for A/B, as in the JAX package
     modulator_window_shape: str = "gaussian"
+
+    def modulator_window_array(self) -> np.ndarray:
+        W = self.modulator_window
+        if self.modulator_window_shape == "gaussian":
+            return stft_ops.gaussian_window(W, sigmas=4.0)
+        return np.ones(W, np.float64)
 
     @property
     def stride(self) -> int:
@@ -302,6 +308,28 @@ def _modulator_band_amps_full(signal, *, edges, window: int, stride: int,
     return _amps_from_band_energy(band_e, window=window, shape=shape)
 
 
+def _modulator_band_amps(signal, band_mat, *, window: int, stride: int,
+                         fft_len: int, shape: str = "gaussian"):
+    """(n_frames, n_bands) band amplitudes from sliding windowed FFTs: the
+    literal FFTModulator form (vocoder.cpp:122-162) — per window, the
+    squared-magnitude spectrum of the 4-sigma Gaussian-windowed frame
+    (vocoder.cpp:241), band amplitude = sqrt(sum of sqmag over the band's
+    bins). amp^2 = (4/(fft_len*sum(w^2))) * sum_bins |F|^2, so a unit
+    in-band sine reads amp 1 under any window. The band sums are a full
+    float32 matmul (TF32 is off package-wide: the JAX package's
+    precision=HIGHEST)."""
+    n = signal.shape[0]
+    n_frames = max(0, (n - window) // stride + 1)
+    frames = stft_ops.frame_signal(signal, window, stride, n_frames)
+    win = (stft_ops.gaussian_window(window, sigmas=4.0) if shape == "gaussian"
+           else np.ones(window, np.float64))
+    frames = frames * torch.as_tensor(win, dtype=frames.dtype, device=frames.device)
+    spec = torch.fft.rfft(frames, n=fft_len)
+    scale = 2.0 / np.sqrt(fft_len * float((win * win).sum()))
+    sq = spec.abs() ** 2 * scale**2
+    return torch.sqrt(sq @ band_mat.to(sq.dtype))
+
+
 def _carrier_vocode(carrier, band_amps, band_mat_full, *, stride: int,
                     fft_len: int):
     """Modulate carrier FFT frames by band amplitudes and overlap-crossfade.
@@ -341,12 +369,14 @@ def modulator_alignment_rows(n: int, params: VocoderParams, n_mod_frames: int):
 
 
 def vocode(modulator, carrier, params: VocoderParams, *,
-           device="cuda") -> torch.Tensor:
+           exact_modulator: bool = False, device="cuda") -> torch.Tensor:
     """Offline vocoder: (modulator, carrier) mono signals -> mono output.
 
     Output sample t mixes volume_modulator*modulator + volume_carrier*carrier
     + volume_vocoded*vocoded (Vocoder compute, vocoder.cpp:761-812).
-    float32 on `device`.
+    float32 on `device`. exact_modulator=True takes the per-window FFT
+    modulator (`_modulator_band_amps`, the reference's own form) instead of
+    the O(n) whole-signal one.
     """
     dev = torch.device(device)
     sr = params.sample_rate
@@ -363,9 +393,17 @@ def vocode(modulator, carrier, params: VocoderParams, *,
     n_mod_frames = max(0, (n - W) // S + 1)
     if n_mod_frames == 0:
         return torch.zeros(0, dtype=torch.float32, device=dev)
-    amps = _modulator_band_amps_fast(
-        modulator, edges, window=W, stride=S, n_frames=n_mod_frames,
-        sample_rate=sr, shape=params.modulator_window_shape)
+    if exact_modulator:
+        mod_fft = stft_ops.fft_length_for(W)
+        bm_mod = torch.as_tensor(_band_matrix(edges, mod_fft // 2 + 1, sr / mod_fft),
+                                 dtype=torch.float32, device=dev)
+        amps = _modulator_band_amps(modulator, bm_mod, window=W, stride=S,
+                                    fft_len=mod_fft,
+                                    shape=params.modulator_window_shape)
+    else:
+        amps = _modulator_band_amps_fast(
+            modulator, edges, window=W, stride=S, n_frames=n_mod_frames,
+            sample_rate=sr, shape=params.modulator_window_shape)
     rows = torch.as_tensor(modulator_alignment_rows(n, params, n_mod_frames),
                            device=dev)
     vocoded = _carrier_vocode(carrier, amps[rows], bm_car, stride=S,

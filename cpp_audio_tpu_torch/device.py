@@ -10,6 +10,7 @@ whole process; it runs when the package is imported.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,6 +24,18 @@ def use_highest_precision() -> None:
 def dtype_of(name: str) -> torch.dtype:
     """torch dtype for the package's dtype strings ("float32", "float64")."""
     return {"float32": torch.float32, "float64": torch.float64}[name]
+
+
+def to_tensor(x, device, dtype=None) -> torch.Tensor:
+    """x as a tensor: a tensor stays on its own device (cast to dtype if
+    given); a host scalar becomes a fill on `device` (no synchronising
+    host-to-device copy); a host array is copied to `device`."""
+    if torch.is_tensor(x):
+        return x if dtype is None else x.to(dtype)
+    a = np.asarray(x)
+    if a.ndim == 0:
+        return torch.full((), a.item(), dtype=dtype, device=torch.device(device))
+    return torch.as_tensor(a, dtype=dtype, device=torch.device(device))
 
 
 use_highest_precision()

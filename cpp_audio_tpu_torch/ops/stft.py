@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import to_tensor
+
 
 def half_gaussian_window(sigmas: float, half_size: int) -> np.ndarray:
     """Right half of a Gaussian window covering `sigmas` standard deviations."""
@@ -39,6 +41,14 @@ def gaussian_window(window_size: int, sigmas: float = 4.0) -> np.ndarray:
         raise ValueError(f"window_size must be even, got {window_size}")
     half = half_gaussian_window(sigmas, window_size // 2)
     return np.concatenate([half[::-1], half])
+
+
+def rectangular_window(window_size: int) -> np.ndarray:
+    return np.ones(window_size, dtype=np.float64)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def fft_length_for(window_size: int, zero_padding_factor: int = 1) -> int:
@@ -71,6 +81,21 @@ def _stft_sqmag(signal: torch.Tensor, window: torch.Tensor, *, window_size: int,
     return spec.abs() ** 2 * scale**2
 
 
+def stft_sqmag(signal, window, stride: int, zero_padding_factor: int = 1,
+               use_matmul_dft: bool | None = None, *, device="cuda") -> torch.Tensor:
+    """(n_frames, n_bins) squared magnitudes in the signal's dtype. Frame f
+    covers [f*stride, f*stride + len(window)). A tensor signal stays on its
+    device; host data goes to `device`. use_matmul_dft is accepted for the
+    JAX package's signature and ignored (its matmul DFT is a TPU
+    workaround)."""
+    del use_matmul_dft
+    sig = to_tensor(signal, device)
+    win = to_tensor(window, sig.device, sig.dtype).to(sig.device)
+    ws = int(win.shape[0])
+    return _stft_sqmag(sig, win, window_size=ws, stride=int(stride),
+                       fft_length=fft_length_for(ws, zero_padding_factor))
+
+
 def _peaks(sqmag: torch.Tensor, *, sample_rate: int, fft_length: int):
     """(is_peak, freq, mag_db), each shaped like sqmag: local maxima and
     their QIFFT-refined frequency and dB magnitude. Peaks at DC/Nyquist edges
@@ -90,6 +115,24 @@ def _peaks(sqmag: torch.Tensor, *, sample_rate: int, fft_length: int):
     freq = (bins[None, :] + delta) * (sample_rate / fft_length)
     mag_db = db - 0.25 * (prev - nxt) * delta
     return is_peak, freq, mag_db
+
+
+def extract_local_max_freqs_mags(sqmag, sample_rate: int, fft_length: int,
+                                 min_db: float = -200.0, *, device="cuda"):
+    """Batched spectral peak extraction -> (is_peak, freq, mag_db) tensors
+    shaped like sqmag; a host consumer filters by the mask."""
+    is_peak, freq, mag_db = _peaks(to_tensor(sqmag, device), sample_rate=sample_rate,
+                                   fft_length=fft_length)
+    return is_peak & (mag_db > min_db), freq, mag_db
+
+
+def extract_top_peaks(sqmag, sample_rate: int, fft_length: int, k: int = 127,
+                      *, device="cuda"):
+    """Top-k peak extraction on the device -> (freq, mag_db), each
+    (n_frames, k), frequency-sorted, with -inf mag padding: only (frames, k)
+    values cross to the host tracker."""
+    return _top_peaks(to_tensor(sqmag, device), sample_rate=sample_rate,
+                      fft_length=fft_length, k=k)
 
 
 def _top_k_lanes(score: torch.Tensor, k: int, *carried: torch.Tensor):
@@ -227,8 +270,22 @@ def _top_peaks_df(sq: torch.Tensor, *, sample_rate: int, fft_length: int,
 
 def top_peaks_to_lists(freq, mag_db) -> list[list[tuple[float, float]]]:
     """Host conversion of _top_peaks output to per-frame lists."""
-    freq = np.asarray(freq)
-    mag_db = np.asarray(mag_db)
+    freq = _host(freq)
+    mag_db = _host(mag_db)
     valid = np.isfinite(mag_db)
     return [list(zip(freq[f][valid[f]].tolist(), mag_db[f][valid[f]].tolist()))
             for f in range(freq.shape[0])]
+
+
+def peaks_to_lists(is_peak, freq, mag_db) -> list[list[tuple[float, float]]]:
+    """Host conversion: per-frame sorted [(freq, mag_db), ...] lists."""
+    is_peak, freq, mag_db = _host(is_peak), _host(freq), _host(mag_db)
+    return [list(zip(freq[f][is_peak[f]].tolist(), mag_db[f][is_peak[f]].tolist()))
+            for f in range(is_peak.shape[0])]
+
+
+def db_to_mag(db):
+    """DbToMag (rt.resynth.lib.algo.cpp:22-26)."""
+    if torch.is_tensor(db):
+        return torch.pow(10.0, db / 20.0)
+    return 10.0 ** (np.asarray(db) / 20.0)

@@ -101,6 +101,22 @@ def test_resynthesize_device_matches_jax(implementation):
     assert float(np.abs(got - ref).max()) / peak < 2e-3
 
 
+def test_resynthesize_prefer_native_false_matches_jax():
+    """JAX's own call (tests/test_chain.py:103-106): prefer_native=False
+    sends "auto" to the Python tracker in both packages."""
+    n = 2 * SR
+    sig = _tone_signal(n)
+    kw = dict(sample_rate=SR, analysis_volume=1.0, dtype="float32")
+    ref = np.asarray(resynth.resynthesize(sig, resynth.ResynthConfig(**kw),
+                                          prefer_native=False))
+    got = tresynth.resynthesize(sig, tresynth.ResynthConfig(**kw),
+                                prefer_native=False, device="cpu").numpy()
+    assert got.shape == ref.shape and got.shape[1] == 2
+    peak = float(np.abs(ref).max())
+    assert peak > 1e-3
+    assert float(np.abs(got - ref).max()) / peak < 2e-3
+
+
 def test_tracker_events_match_jax():
     sig = _tone_signal(2 * SR)
     cfg = resynth.ResynthConfig(sample_rate=SR, analysis_volume=1.0, dtype="float32")

@@ -131,3 +131,34 @@ def test_kernel_on_tile_edges(cuda_card, block_size, n_channels):
         assert float(p_out.abs().max()) > 0.05
         assert float((k_out - p_out).abs().max()) <= ATOL
         assert bool((k_out[3 * block_size:] == 0).all())  # no live row
+
+
+@pytest.mark.cuda
+def test_kernel_on_a_live_pull(cuda_card):
+    """The live path's shape: one 512-sample block (one CTA, a ragged tile)
+    at t0 = 59 s, where StreamingSynth has shifted press and release by -t0:
+    a note held since t = 0 (press -2,601,900), one retuned, one releasing."""
+    from cpp_audio_tpu_torch.models import streaming_synth
+
+    cfg = sine_synth.SineSynthConfig(
+        sample_rate=44100, ahdsr=envelopes.AHDSR(attack=441, hold=100, decay=2000,
+                                                 release=8820, sustain=0.7))
+    synth = streaming_synth.StreamingSynth(cfg, n_voices=127, device=cuda_card)
+    t0 = 59 * 44100
+    for i, (press, f) in enumerate([(0, 110.0), (1_000_000, 440.0), (t0 - 3000, 987.0),
+                                    (t0 - 700, 1500.0), (t0 + 200, 330.0)]):
+        synth.on_event(events.mk_note_on(press, f, 0.9, note_id=i, pan=0.3 * i - 0.5))
+    synth.on_event(events.mk_note_change(t0 - 5000, 1, 452.0, 0.7))
+    synth.on_event(events.mk_note_off(t0 - 4000, 2))
+    bank = synth.bank_at(t0)
+    assert bank.press.min() == -t0
+    for n in (512, 496):
+        args, st = tvb.prepare_bank_arrays(bank, n, n, device=cuda_card)
+        before = cv.LAUNCHES
+        k_out = synth.compute(t0, n)
+        assert cv.LAUNCHES == before + 1
+        p_out = cv.render_blocks_plain(*args, **st)
+        torch.cuda.synchronize()
+        assert k_out.shape == p_out.shape == (n, 2)
+        assert float(p_out.abs().max()) > 0.02
+        assert float((k_out - p_out).abs().max()) <= ATOL

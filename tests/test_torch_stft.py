@@ -118,3 +118,40 @@ def test_top_peaks_to_lists():
     freq = np.array([[100.0, 200.0, 0.0]])
     mag = np.array([[-3.0, -6.0, -np.inf]])
     assert tstft.top_peaks_to_lists(freq, mag) == stft.top_peaks_to_lists(freq, mag)
+
+
+def test_public_helpers_match_jax():
+    """stft_sqmag, extract_local_max_freqs_mags, extract_top_peaks,
+    peaks_to_lists, rectangular_window and db_to_mag against JAX's, on the
+    live path's shapes (one float32 window of 8000 samples, k = 128). The
+    spectrum is held as in test_stft_sqmag_matches, the peaks on the same
+    sqmag input as in test_top_peaks_on_identical_sqmag."""
+    x = _signal(8000, seed=3)
+    win = stft.gaussian_window(8000)
+    ref_sq = np.asarray(stft.stft_sqmag(x, win, 3969))
+    got_sq = tstft.stft_sqmag(x, win, 3969, use_matmul_dft=True, device="cpu")
+    assert got_sq.dtype == torch.float32 and got_sq.shape == ref_sq.shape == (1, 4097)
+    np.testing.assert_allclose(got_sq.numpy(), ref_sq, rtol=0, atol=1e-5 * float(ref_sq.max()))
+
+    sq = ref_sq.astype(np.float32)
+    ref_top = stft.extract_top_peaks(sq, SR, 8192, k=128)
+    got_top = tstft.extract_top_peaks(sq, SR, 8192, k=128, device="cpu")
+    _assert_same_peaks(tuple(t.numpy() for t in got_top),
+                       tuple(np.asarray(t) for t in ref_top))
+
+    ref_lm = [np.asarray(a) for a in stft.extract_local_max_freqs_mags(sq, SR, 8192,
+                                                                       min_db=-90.0)]
+    got_lm = [t.numpy() for t in tstft.extract_local_max_freqs_mags(
+        sq, SR, 8192, min_db=-90.0, device="cpu")]
+    np.testing.assert_array_equal(got_lm[0], ref_lm[0])
+    np.testing.assert_allclose(got_lm[1][ref_lm[0]], ref_lm[1][ref_lm[0]], atol=1e-3)
+    ref_lists = stft.peaks_to_lists(*ref_lm)
+    got_lists = tstft.peaks_to_lists(*got_lm)
+    assert [len(p) for p in got_lists] == [len(p) for p in ref_lists] and len(ref_lists[0]) > 5
+    np.testing.assert_allclose(np.asarray(got_lists[0]), np.asarray(ref_lists[0]), atol=1e-3)
+
+    np.testing.assert_array_equal(tstft.rectangular_window(10), stft.rectangular_window(10))
+    db = np.array([-120.0, -6.0, 0.0, 3.5])
+    np.testing.assert_allclose(tstft.db_to_mag(db), stft.db_to_mag(db), rtol=1e-15)
+    np.testing.assert_allclose(tstft.db_to_mag(torch.from_numpy(db)).numpy(),
+                               stft.db_to_mag(db), rtol=1e-15)

@@ -90,3 +90,36 @@ def test_vocode_matches():
                       device="cpu").numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_exact_modulator_band_amps_match():
+    """The per-window FFT modulator (the reference's own FFTModulator form)
+    on the same float32 signal, at the band-amplitude tolerance above."""
+    import jax.numpy as jnp
+
+    x = _modulator(SR // 2, seed=5)
+    p = vocoder.VocoderParams(sample_rate=SR)
+    S, W = p.stride, p.modulator_window
+    fft_len = 8192
+    bm = vocoder._band_matrix(p.band_freqs(), fft_len // 2 + 1, SR / fft_len)
+    ref = np.asarray(vocoder._modulator_band_amps(
+        jnp.asarray(x), jnp.asarray(bm, jnp.float32), window=W, stride=S,
+        fft_len=fft_len))
+    got = tvoc._modulator_band_amps(torch.from_numpy(x),
+                                    torch.from_numpy(bm.astype(np.float32)),
+                                    window=W, stride=S, fft_len=fft_len).numpy()
+    assert got.shape == ref.shape == ((len(x) - W) // S + 1, 5)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6 * float(ref.max()))
+
+
+def test_vocode_exact_modulator_matches():
+    n = SR
+    mod = _modulator(n, seed=6)
+    carrier = np.sign(np.sin(2 * np.pi * 110.0 * np.arange(n) / SR))
+    kw = dict(sample_rate=SR, volume_carrier=0.1)
+    ref = np.asarray(vocoder.vocode(mod, carrier, vocoder.VocoderParams(**kw),
+                                    exact_modulator=True))
+    got = tvoc.vocode(mod, carrier, tvoc.VocoderParams(**kw), exact_modulator=True,
+                      device="cpu").numpy()
+    assert got.shape == ref.shape and np.abs(ref).max() > 0.05
+    np.testing.assert_allclose(got, ref, atol=1e-4)
