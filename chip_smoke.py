@@ -73,6 +73,24 @@ Phases (any failure exits non-zero and prints no result):
      equal, output < 2e-3 of peak, vocoded leg atol 1e-4), then
      deduce_notes + resynth_deduced on 12 s of the mixdown, cuda against
      the CPU (same notes, render < 2e-3 of peak).
+ 11. the JSON offline job and the apps, on the headline workload (its mono
+     mixdown as the voice WAV, a 110 Hz square as the carrier WAV, written
+     through the port's utils/wav.py into build/phase11; the chain's
+     analysis and vocoder settings, every leg of the mix on, post "limit"):
+     J1 offline_job.run_job at 60 s (first run, median of 3 warm walls,
+     stages each synchronised; output finite within the limiter's ceiling,
+     the WAV read back equal to the returned array, the mix equal to one
+     rebuilt from resynthesize and vocode of the gained voice); J2 the same
+     job with feedback drones (gain 0.3, delay 1 s: wall, passes); J3
+     checkpoint.run_job_checkpointed at 60 s, segment 5 s, killed after 4
+     segments and resumed (walls, snapshot size, the kernel's launches:
+     `launches_job`), at 12 s the resumed output bitwise equal to an
+     uninterrupted run, and the synchronising calls per block with and
+     without the feedback path; J4 every apps.resynth mode and both
+     apps.resynth_ui modes at 2 s on cuda, each writing its outputs, and
+     the --job output on cuda against the CPU (full mix < 2e-3 of peak, a
+     vocoder-only job atol 1e-4); the filter-bank vocoder at 60 s (walls,
+     ops) against the CPU at atol 1e-4.
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -1336,6 +1354,410 @@ def _unmatched_notes(a, b):
     return [x for x in a if not twin(x, b)], [y for y in b if not twin(y, a)]
 
 
+APP_DIR = "build/phase11"     # inputs, jobs and outputs of phase 11 (git-ignored)
+APP_SECONDS = 2.0             # J4: each app mode
+RESUME_SECONDS = 12.0         # J3: the bitwise resume check
+SEGMENT_SECONDS = 5.0         # J3: audio seconds between snapshots
+
+
+def _job_preset(**kw):
+    """The chain's analysis and vocoder settings (the preset's defaults:
+    window 8000, stride 3969, k = 128; vocoder stride 221, modulator window
+    4410) with every leg of the mix on."""
+    from cpp_audio_tpu_torch.analysis import offline_job as oj
+    from cpp_audio_tpu_torch.analysis.presets_json import ResynthPreset
+
+    p = ResynthPreset(**{**dict(analysis_volume=1.0, vocoder_volume=0.5,
+                                voice_volume=0.2, carrier_volume=0.05), **kw})
+    rc, vp = oj.resynth_config_from_preset(p, SR), oj.vocoder_params_from_preset(p, SR)
+    got = (rc.window_size, rc.stride, rc.max_voices + 1, vp.stride, vp.modulator_window)
+    if got != (8000, 3969, 128, 221, 4410):
+        raise RuntimeError(f"job preset is not the chain's settings: {got}")
+    return p
+
+
+def write_job(name: str, n: int, preset, post: str = "limit"):
+    """Writes the headline mono mixdown (n samples) as the voice WAV and a
+    110 Hz square as the carrier WAV (the port's utils/wav.py, float32),
+    the preset and the job file under APP_DIR; returns the job config."""
+    import os
+
+    from cpp_audio_tpu_torch.analysis.presets_json import OfflineJobConfig
+    from cpp_audio_tpu_torch.utils import wav as wavio
+
+    os.makedirs(APP_DIR, exist_ok=True)
+    voice, carrier = f"{APP_DIR}/voice_{n}.wav", f"{APP_DIR}/carrier_{n}.wav"
+    if not os.path.exists(voice):
+        wavio.write_wav(voice, headline_mixdown(n, "cuda"), SR)
+        wavio.write_wav(carrier, np.sign(np.sin(2 * np.pi * 110.0 * np.arange(n) / SR)), SR)
+    preset.save(f"{APP_DIR}/{name}.preset.json")
+    cfg = OfflineJobConfig(preset_file=f"{APP_DIR}/{name}.preset.json",
+                           input_voice_file=voice, input_carrier_file=carrier,
+                           output_file=f"{APP_DIR}/{name}.wav", post=post)
+    cfg.save(f"{APP_DIR}/{name}.job.json")
+    return cfg
+
+
+def _finite_within(name: str, out: np.ndarray, ceiling: float = 1.0) -> float:
+    peak = float(np.abs(out).max())
+    if not (np.isfinite(out).all() and 1e-3 < peak <= ceiling + 1e-9):
+        raise RuntimeError(f"{name}: output not finite within the ceiling (peak {peak})")
+    return peak
+
+
+def phase_jobs_and_apps(card: str) -> dict:
+    """Phase 11: the JSON offline job, its feedback drones and its
+    checkpointed form at 60 s, the apps, and the filter-bank vocoder.
+    Returns the kernels-line keys it measures (launches_job)."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import device_tracker
+    from cpp_audio_tpu_torch.analysis import offline_job as oj
+    from cpp_audio_tpu_torch.analysis import resynth as rs
+    from cpp_audio_tpu_torch.analysis import vocoder as voc
+    from cpp_audio_tpu_torch.ops import limiter as lim
+    from cpp_audio_tpu_torch.utils import wav as wavio
+
+    n = int(SR * SECONDS)
+    preset = _job_preset()
+    cfg = write_job("j1", n, preset)
+    _, voice, carrier, _ = oj.load_job_inputs(cfg)
+
+    # J1: the batch job
+    t0 = time.perf_counter()
+    oj.run_job(cfg, device="cuda")
+    first = time.perf_counter() - t0
+    walls, outs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        outs.append(oj.run_job(cfg, device="cuda"))
+        walls.append(time.perf_counter() - t0)
+    stages = {}
+    out = oj.run_job(cfg, device="cuda", timings=stages)
+    wall = statistics.median(walls)
+    print(f"[J1] run_job, {SECONDS:.0f} s job (voice + carrier + vocoder + resynthesis, limit): "
+          f"first {first:.3f} s, warm median {wall * 1e3:.3f} ms of 3 "
+          f"({', '.join(f'{w * 1e3:.3f}' for w in walls)} ms), {SECONDS / wall:.1f}x "
+          f"realtime on {card}; stages " + ", ".join(f"{k} {v * 1e3:.3f} ms"
+                                                     for k, v in stages.items())
+          + " (synchronised per stage)")
+    peak = _finite_within("J1", out)
+    data, sr = wavio.read_wav(cfg.output_file)
+    if not (sr == SR and np.array_equal(data, out.astype(np.float32).astype(np.float64))):
+        raise RuntimeError("J1: the WAV read back is not the returned output")
+    spread = max(float(np.abs(o - out).max()) for o in outs)
+    print(f"[J1] run to run, 4 runs of the job on the card: max|diff| {spread:.3e} "
+          f"({spread / peak:.3e} of peak); {_deterministic_spread(oj, preset, voice)}")
+    # the mix rebuilt from its legs' own calls on the same inputs
+    f64 = dict(dtype=torch.float64, device="cuda")
+    gained = preset.analysis_input_gain * torch.as_tensor(voice, **f64)
+    r = rs.resynthesize(gained, oj.resynth_config_from_preset(preset, SR), device="cuda")
+    v = voc.vocode(gained, torch.as_tensor(carrier, **f64),
+                   oj.vocoder_params_from_preset(preset, SR), device="cuda")
+    mix = torch.zeros((n, 2), **f64)
+    mix[:v.shape[0]] += preset.vocoder_volume * v[:n, None]
+    mix += preset.voice_volume * torch.as_tensor(voice, **f64)[:, None]
+    mix += preset.carrier_volume * torch.as_tensor(carrier, **f64)[:, None]
+    mix[:min(r.shape[0], n)] += r[:n]
+    mix = lim.limit(mix, sample_rate=SR).cpu().numpy()
+    d_mix = float(np.abs(mix - out).max()) / peak
+    print(f"[J1] output peak {peak:.4f} (ceiling 1); WAV read back equals the output "
+          f"(float32); the mix rebuilt from resynthesize (resynth leg {tuple(r.shape)}, "
+          f"peak {float(r.abs().max()):.4f}) and vocode of the gained voice: max|diff|/peak "
+          f"{d_mix:.3e} (bar 2e-3, the chain's; the run-to-run spread is above)")
+    if not d_mix < 2e-3:
+        raise RuntimeError(f"J1: the job's mix is not its legs': {d_mix}")
+
+    # J2: feedback drones
+    cfg2 = write_job("j2", n, _job_preset(analysis_output_feedback_gain=0.3,
+                                          output_delay_seconds=1.0))
+    calls, scans = [], []
+    plain_resynthesize, plain_scan = rs.resynthesize, device_tracker._scan_tables
+
+    def counted(*a, **k):
+        calls.append(1)
+        return plain_resynthesize(*a, **k)
+
+    def counted_scan(*a, **k):
+        t0 = time.perf_counter()
+        out = plain_scan(*a, **k)
+        torch.cuda.synchronize()
+        scans.append(time.perf_counter() - t0)
+        return out
+
+    rs.resynthesize, device_tracker._scan_tables = counted, counted_scan
+    try:
+        t0 = time.perf_counter()
+        out2 = oj.run_job(cfg2, device="cuda")
+        wall2 = time.perf_counter() - t0
+    finally:
+        rs.resynthesize, device_tracker._scan_tables = plain_resynthesize, plain_scan
+    passes = -(-n // SR)
+    print(f"[J2] feedback drones (gain 0.3, delay 1.0 s): wall {wall2:.3f} s on {card}; "
+          f"{len(calls) - 1} passes of resynthesize on growing prefixes (ceil(n/D) = "
+          f"{passes}) + 1 full; {len(scans)} of them took the device tracker's exact "
+          f"frame loop (its violation flag set), {sum(scans):.3f} s in all; peak "
+          f"{_finite_within('J2', out2):.4f}")
+    if len(calls) != passes + 1:
+        raise RuntimeError(f"J2: {len(calls)} resynthesize calls, {passes + 1} expected")
+
+    launches_job = phase_checkpointed_job(card, cfg, preset, n)
+    phase_apps(card)
+    phase_filter_bank(card, voice, carrier)
+    return {"launches_job": launches_job}
+
+
+def _deterministic_spread(oj, preset, voice) -> str:
+    """Diagnostic: resynthesize of the job's gained voice twice with
+    torch.use_deterministic_algorithms(True) (deterministic scatter-adds in
+    the device tracker, among others): max|diff| between the two."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import resynth as rs
+
+    cfg = oj.resynth_config_from_preset(preset, SR)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, b = (rs.resynthesize(preset.analysis_input_gain * voice, cfg, device="cuda")
+                for _ in range(2))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return (f"resynthesize twice in torch's deterministic mode: max|diff| "
+            f"{float((a - b).abs().max()):.3e}")
+
+
+def phase_checkpointed_job(card, cfg, preset, n) -> int:
+    """J3: checkpoint.run_job_checkpointed at 60 s, killed after 4 segments
+    and resumed; at RESUME_SECONDS the resumed output bitwise equal to an
+    uninterrupted run; the synchronising calls per block with and without
+    the feedback path. Returns the kernel launches of the 60 s job."""
+    import os
+    import warnings
+
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import checkpoint as ck
+    from cpp_audio_tpu_torch.analysis import offline_job as oj
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+
+    path = f"{APP_DIR}/j3.ckpt"
+    if os.path.exists(path):
+        os.remove(path)
+    os.remove(cfg.output_file)
+    cv.LAUNCHES = 0
+    t0 = time.perf_counter()
+    killed = ck.run_job_checkpointed(cfg, path, segment_seconds=SEGMENT_SECONDS,
+                                     max_segments=4, device="cuda")
+    wall_a = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    out = ck.run_job_checkpointed(cfg, path, segment_seconds=SEGMENT_SECONDS, device="cuda")
+    wall_b = time.perf_counter() - t0
+    launches = cv.LAUNCHES
+    blocks = -(-n // 512)
+    print(f"[J3] run_job_checkpointed, {SECONDS:.0f} s, segment {SEGMENT_SECONDS} s, {blocks} blocks "
+          f"of 512: killed after 4 segments in {wall_a:.3f} s (snapshot {size} bytes), "
+          f"resumed to the end in {wall_b:.3f} s ({SECONDS / (wall_a + wall_b):.2f}x "
+          f"realtime in all) on {card}; voice-bank kernel launches {launches}; peak "
+          f"{_finite_within('J3', out):.4f}")
+    if not (killed is None and launches > 0 and out.shape == (n, 2)
+            and not os.path.exists(path) and os.path.exists(cfg.output_file)):
+        raise RuntimeError("J3: the checkpointed job did not kill, resume and finish")
+
+    m = int(SR * RESUME_SECONDS)
+    _, voice, carrier, _ = oj.load_job_inputs(cfg)
+    kw = dict(post="limit", segment_seconds=SEGMENT_SECONDS, device="cuda")
+    full = ck.run_offline_streaming(preset, voice[:m], carrier[:m], SR, **kw)
+    path12 = f"{APP_DIR}/j3_resume.ckpt"
+    if os.path.exists(path12):
+        os.remove(path12)
+    assert_none = ck.run_offline_streaming(preset, voice[:m], carrier[:m], SR,
+                                           checkpoint_path=path12, max_segments=1, **kw)
+    resumed = ck.run_offline_streaming(preset, voice[:m], carrier[:m], SR,
+                                       checkpoint_path=path12, **kw)
+    same = assert_none is None and np.array_equal(resumed, full)
+    print(f"[J3] {RESUME_SECONDS} s: killed after 1 segment and resumed against an "
+          f"uninterrupted run on the card: bitwise equal {same} (max|diff| "
+          f"{float(np.abs(resumed - full).max()):.3e})")
+    if not same:
+        raise RuntimeError("J3: the resumed render is not bitwise the uninterrupted one")
+
+    # synchronising calls per block, without and with the feedback path
+    k = 2 * SR
+    for name, p in (("no feedback", preset),
+                    ("feedback 0.3 / 1 s", _job_preset(analysis_output_feedback_gain=0.3,
+                                                       output_delay_seconds=1.0))):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ck.run_offline_streaming(p, voice[:k], carrier[:k], SR, post="limit",
+                                         device="cuda")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        hits = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+        where = {}
+        for w in hits:
+            key = str(w.filename).rsplit("/", 1)[-1] + f":{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+        nb = -(-k // 512)
+        print(f"[J3 syncs] {name}, 2 s ({nb} blocks): {len(hits)} synchronising calls, "
+              f"{len(hits) / nb:.2f} per block: "
+              + ", ".join(f"{a} x{b}" for a, b in sorted(where.items())))
+    return launches
+
+
+def _write_smf(path):
+    """A small Standard MIDI File: two carrier notes and a pitch-wheel move."""
+    import struct
+
+    trk = b"\x00\xff\x51\x03" + struct.pack(">I", 500000)[1:]
+    for delta, msg in ((b"\x00", (0x90, 45, 100)), (b"\x81\x70", (0x90, 52, 90)),
+                       (b"\x81\x70", (0xE0, 0x00, 0x50)), (b"\x83\x60", (0x80, 45, 0)),
+                       (b"\x00", (0x80, 52, 0))):
+        trk += delta + bytes(msg)
+    trk += b"\x00\xff\x2f\x00"
+    with open(path, "wb") as f:
+        f.write(b"MThd" + struct.pack(">IHHH", 6, 0, 1, 480) + b"MTrk"
+                + struct.pack(">I", len(trk)) + trk)
+
+
+def phase_apps(card):
+    """J4: every apps.resynth mode and both apps.resynth_ui modes, in
+    process at APP_SECONDS on cuda; each must write its outputs. The --job
+    output on the card against the same job on the CPU: the full mix
+    within 2e-3 of peak, a vocoder-only job at atol 1e-4."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from cpp_audio_tpu_torch.apps import resynth as app
+    from cpp_audio_tpu_torch.apps import resynth_ui as ui
+    from cpp_audio_tpu_torch.utils import wav as wavio
+
+    n = int(SR * APP_SECONDS)
+    cfg = write_job("j4", n, _job_preset())
+    cfg_voc = write_job("j4_vocoder", n, _job_preset(analysis_volume=0.0, voice_volume=0.0,
+                                                     carrier_volume=0.0))
+    d = APP_DIR
+    _write_smf(f"{d}/j4.mid")
+    inp, car = cfg.input_voice_file, cfg.input_carrier_file
+    modes = {
+        "plain": ([inp, f"{d}/app_plain.wav"], [f"{d}/app_plain.wav"]),
+        "--job": (["--job", f"{d}/j4_vocoder.job.json"], [cfg_voc.output_file]),
+        "--job --checkpoint": (["--job", f"{d}/j4.job.json", "--checkpoint",
+                                f"{d}/app.ckpt", "--checkpoint-seconds", "0.5"],
+                               [cfg.output_file]),
+        "--live": ([inp, f"{d}/app_live.wav", "--live"], [f"{d}/app_live.wav"]),
+        "--live --midi": ([inp, f"{d}/app_midi.wav", "--live", "--midi", f"{d}/j4.mid",
+                           "--carrier", "saw=0.8,noise=0.2"], [f"{d}/app_midi.wav"]),
+        "--vocode fft": ([inp, f"{d}/app_vfft.wav", "--vocode", car], [f"{d}/app_vfft.wav"]),
+        "--vocode filterbank --debug-vocoder": (
+            [inp, f"{d}/app_vfb.wav", "--vocode", car, "--vocode-mode", "filterbank",
+             "--debug-vocoder", f"{d}/taps"], [f"{d}/app_vfb.wav", f"{d}/taps/vocoded.wav",
+                                              f"{d}/taps/band_0.wav"]),
+        "--deduce": ([inp, f"{d}/app_deduce.wav", "--deduce"],
+                     [f"{d}/app_deduce.wav", f"{d}/app_deduce.notes.bmp"]),
+    }
+    for name, (argv, outputs) in modes.items():
+        for f in outputs:
+            if os.path.exists(f):
+                os.remove(f)
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = app.main(argv + ["--device", "cuda"])
+        wall = time.perf_counter() - t0
+        missing = [f for f in outputs if not os.path.exists(f)]
+        peak = max(float(np.abs(wavio.read_wav(f)[0]).max()) for f in outputs
+                   if f.endswith(".wav") and f not in missing) if len(missing) < len(outputs) else 0
+        print(f"[J4] apps.resynth {name}: rc {rc}, {wall:.3f} s, wrote {len(outputs)} "
+              f"outputs (peak {peak:.4f}): {text.getvalue().strip()[-120:]}")
+        if rc != 0 or missing or not peak > 1e-4:
+            raise RuntimeError(f"J4: apps.resynth {name} failed (missing {missing})")
+
+    for name, argv, feed in (("report --vocoder", [inp, "--vocoder"], ""),
+                             ("--live", [inp, "--live"], "set min_volume 0.0001\nquit\n")):
+        text = io.StringIO()
+        stdin, sys.stdin = sys.stdin, io.StringIO(feed)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(text):
+                rc = ui.main(argv + ["--device", "cuda"])
+        finally:
+            sys.stdin = stdin
+        wall = time.perf_counter() - t0
+        lines = text.getvalue().splitlines()
+        gauges = [x.strip() for x in lines if x.endswith(" ms")]
+        print(f"[J4] apps.resynth_ui {name}: rc {rc}, {wall:.3f} s, {len(lines)} lines; "
+              f"{'; '.join(gauges) or lines[-1]}")
+        if rc != 0 or "pitch window" not in text.getvalue():
+            raise RuntimeError(f"J4: apps.resynth_ui {name} failed")
+
+    for name, job, bar, rel in (("full mix", cfg, 2e-3, True),
+                                ("vocoder only", cfg_voc, 1e-4, False)):
+        app_out = {}
+        for dev in ("cuda", "cpu"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                app.main(["--job", f"{d}/{os.path.basename(job.output_file)[:-4]}.job.json",
+                          "--device", dev])
+            app_out[dev] = wavio.read_wav(job.output_file)[0]
+        g, c = app_out["cuda"], app_out["cpu"]
+        peak = float(np.abs(c).max())
+        diff = float(np.abs(g - c).max()) / (peak if rel else 1.0)
+        print(f"[J4] --job {name}, {APP_SECONDS} s, cuda against cpu: max|diff|"
+              f"{'/peak' if rel else ''} {diff:.3e} (peak {peak:.4f}; bar {bar})")
+        if not (g.shape == c.shape and peak > 1e-3 and diff < bar):
+            raise RuntimeError(f"J4: --job {name} on cuda disagrees with the CPU")
+    torch.cuda.synchronize()
+
+
+def phase_filter_bank(card, voice, carrier):
+    """The filter-bank vocoder at 60 s on cuda: first call and the median
+    of 3 warm walls, its ATen op count; held against the CPU at atol 1e-4
+    (tests/test_torch_filters.py's bar against JAX) and a silent modulator
+    below 1e-6 (tests/test_vocoder_filterbank.py)."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import vocoder as voc
+
+    p = voc.VocoderParams(sample_rate=SR)
+    mod = torch.as_tensor(voice, dtype=torch.float32, device="cuda")
+    car = torch.as_tensor(carrier, dtype=torch.float32, device="cuda")
+
+    def run():
+        out = voc.vocode_filter_bank(mod, car, p, device="cuda")
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    run()
+    first = time.perf_counter() - t0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        g = run()
+        walls.append(time.perf_counter() - t0)
+    ops = _dispatched_ops(run)
+    t0 = time.perf_counter()
+    c = voc.vocode_filter_bank(voice, carrier, p, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    diff = float((g.cpu() - c).abs().max())
+    silent = float(voc.vocode_filter_bank(torch.zeros_like(mod), car, p,
+                                          device="cuda").abs().max())
+    wall = statistics.median(walls)
+    print(f"[filter bank] vocode_filter_bank, {SECONDS:.0f} s, {p.count_bands} bands: first "
+          f"{first:.3f} s, warm median {wall * 1e3:.3f} ms of 3 "
+          f"({', '.join(f'{w * 1e3:.3f}' for w in walls)} ms) on {card}; {ops} ATen ops; "
+          f"CPU {t_cpu:.3f} s; cuda against cpu max|diff| {diff:.3e} (peak "
+          f"{float(c.abs().max()):.4f}, bar 1e-4); silent modulator {silent:.3e}")
+    if not (diff <= 1e-4 and float(c.abs().max()) > 1e-3 and silent < 1e-6):
+        raise RuntimeError("the filter-bank vocoder on cuda disagrees with the CPU")
+
+
 def main() -> int:
     try:
         card = card_line()
@@ -1361,6 +1783,7 @@ def main() -> int:
         phase_df_fidelity()
         phase_df_reference()
         measured.update(phase_live(card))
+        measured.update(phase_jobs_and_apps(card))
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

@@ -595,17 +595,17 @@ def _fused_resynth_from_signal(mono, window, tracker_args, *, tr_kw: dict,
 
 
 def resynthesize_signal_device(signal, rconfig, *, device="cuda") -> torch.Tensor:
-    """Device-resident resynthesis of a mono signal on `device` (JAX
-    chain.py:781-815), covering autotune and harmonize configs. Returns the
-    (T, 2) stereo tensor."""
+    """Device-resident resynthesis of a mono signal (a host array or a
+    tensor) on `device` (JAX chain.py:781-815), covering autotune and
+    harmonize configs. Returns the (T, 2) stereo tensor."""
     dev = torch.device(device)
     wdt = _device_dtype(rconfig)
-    n = int(np.shape(signal)[0])
+    n = int(signal.shape[0]) if torch.is_tensor(signal) else len(signal)
     rcfg = resynth_mod._render_config(rconfig)
     tracker_args, tr_kw = _tracker_inputs(rconfig, rcfg, _n_frames(n, rconfig),
                                           None, wdt, dev)
     stereo, _dropped = _fused_resynth_from_signal(
-        torch.as_tensor(np.asarray(signal), dtype=wdt, device=dev),
+        torch.as_tensor(signal, dtype=wdt, device=dev),
         torch.as_tensor(stft_ops.gaussian_window(rconfig.window_size,
                                                  sigmas=4.0),
                         dtype=wdt, device=dev),

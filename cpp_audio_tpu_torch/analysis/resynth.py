@@ -19,7 +19,8 @@ pans and phases from numpy RNGs, and the device tracker
 (`draw_pools`), so every tracker of both packages draws the same values.
 `resynthesize` routes as the JAX package does (implementation="auto" by
 default: the device tracker, or the native one for reference-semantics
-harmonize configs).
+harmonize configs). `resynthesize_feedback` keeps its summed stream, fed-back
+mono mix and in-loop limiter on the device.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 
 from ..models import resynth_bank
 from ..ops import envelopes, stft
+from ..utils import wav as wavio
 from ..utils.interp import Itp
 from ..utils.midi import Midi
 from . import autotune as at
@@ -520,3 +522,96 @@ def resynthesize(signal, config: ResynthConfig, *,
         peaks, config,
         prefer_native=prefer_native and implementation != "python")
     return resynth_bank.render_tracked(notes, len(peaks), rcfg, device=device)
+
+
+def resynthesize_feedback(signal, config: ResynthConfig, *,
+                          feedback_gain: float, delay_seconds: float = 1.0,
+                          max_level: float = 4.0, post_limit: bool = False,
+                          extra_mix=None, device="cuda") -> torch.Tensor:
+    """Resynthesis with delayed-output feedback into the analyzed stream.
+
+    Reference (rt.resynth.lib.cpp:1629-1651): the analysis thread sums the
+    live input with `analysis_output_feedback_gain` x the output delayed by a
+    cyclic delay line of `output_delay_seconds` before feeding the FFT — the
+    "feedback drone" feature. The coupled system is frame-causal (the output
+    at time t depends on analysis frames <= t, which depend on the summed
+    stream <= t, which depends on output <= t - delay), so it resolves
+    exactly in ceil(n/delay) passes: each pass extends the summed stream by
+    one delay-chunk using the previous pass's output, re-runs the batch
+    pipeline on the prefix, and keeps the newly-valid chunk.
+
+    The fed-back stream is the L+R sum of the POST-PROCESSED output
+    (RtResynth::init_post publishes the mono sum after the post chain,
+    rt.resynth.lib.cpp:1263-1273): with post_limit the master limiter is in
+    the loop (Postprocessing::Limit — the only thing keeping a hot loop
+    bounded), and `extra_mix` carries the other output legs (vocoder,
+    direct voice/carrier) that the published output includes. Without
+    post_limit the reference feeds back the RAW output (Postprocessing::
+    None has no clamp — an unstable gain diverges, for real); offline we
+    clamp the summed analysis stream at max_level instead, a documented
+    repo improvement.
+
+    The effective loop delay is `delay + 1` samples: the analysis aggregator
+    pairs input[t] with the PREVIOUS iteration's published output (the
+    output stream is one sample behind the input stream in the duplex loop),
+    so the analyzed stream is input[t] + gain * output[t - 1 - delay] —
+    pinned by the assembled rtjob oracle (tests/test_rtjob_oracle.py;
+    a tap at exactly `delay` decorrelates at the second feedback
+    generation).
+
+    Returns the resynth leg only, a (T, 2) tensor on `device` (the caller
+    composes legs + final post, as run_offline does; the full-stream
+    limiter equals the in-loop streaming limiter because the follower
+    recurrence is causal). The summed stream, the fed-back mono mix and
+    the in-loop limiter stay on `device`: no pass copies to the host.
+    """
+    from ..ops import limiter as lim
+
+    dev = torch.device(device)
+    sig = torch.as_tensor(signal, dtype=torch.float64, device=dev)
+    n = sig.shape[0]
+    D = max(config.stride, int(0.5 + delay_seconds * config.sample_rate))
+    if feedback_gain == 0.0:
+        return resynthesize(sig, config, device=dev)
+    Deff = D + 1
+    out_mono = sig.new_zeros(n)  # delayed-feedback source (L+R sum, out.h:1268)
+    summed = sig.clone()
+    extra = None
+    if extra_mix is not None:
+        extra = sig.new_zeros((n, 2))
+        m0 = min(n, len(extra_mix))
+        extra[:m0] = torch.as_tensor(extra_mix[:m0], dtype=torch.float64, device=dev)
+    for start in range(0, n, D):
+        end = min(start + D, n)
+        delayed = sig.new_zeros(end - start)
+        src_lo = start - Deff
+        if src_lo + (end - start) > 0:
+            lo = max(src_lo, 0)
+            delayed[lo - src_lo:] = out_mono[lo: src_lo + (end - start)]
+        blk = sig[start:end] + feedback_gain * delayed
+        if not post_limit:
+            blk = torch.clamp(blk, -max_level, max_level)
+        summed[start:end] = blk
+        result = resynthesize(summed[:end], config, device=dev).to(torch.float64)
+        if extra is not None:
+            m2 = min(result.shape[0], n)
+            result[:m2] += extra[:m2]
+        if post_limit:
+            result, _p = lim.limit_streaming(result, sample_rate=config.sample_rate)
+        m = result.sum(dim=1)
+        out_mono[:min(m.shape[0], n)] = m[:n]
+    return resynthesize(summed, config, device=dev)
+
+
+def resynth_wav(in_path, out_path, config: ResynthConfig | None = None, *,
+                device="cuda") -> np.ndarray:
+    """WAV -> analysis -> resynthesis -> WAV (the `resynth` app scheme).
+    The resynthesis runs on `device`; its (T, 2) output comes to the host
+    once, for the WAV and the return."""
+    data, sr = wavio.read_wav(in_path)
+    mono = data.mean(axis=1)
+    config = config or ResynthConfig()
+    config.sample_rate = sr
+    out = resynthesize(mono, config, device=device).cpu().numpy()
+    wavio.write_wav(out_path, out, sr)
+    return out

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core import events
+from ..device import HostPickled
 from ..models import sine_synth
 from ..models.streaming_synth import StreamingSynth
 from ..ops import envelopes, stft
@@ -35,7 +36,7 @@ from . import vocoder as voc
 from .resynth import AnalysisFrameResult, PitchTracker, ResynthConfig
 
 
-class PeriodicFFT:
+class PeriodicFFT(HostPickled):
     """Sliding-window buffer: feed samples, get a callback per full window.
 
     on_window(window_samples, end_sample): called when a window completes;
@@ -127,7 +128,7 @@ def _completed_windows(tail: torch.Tensor, block: torch.Tensor, t0: int,
     return frames, first, m, stream[-(window - 1):] if window > 1 else stream[:0]
 
 
-class StreamingVocoder:
+class StreamingVocoder(HostPickled):
     """Block-streaming FFT vocoder — the live Vocoder compute
     (source/rt.resynth.lib.vocoder.cpp:396-560,734-860) in feed/pull form.
 
@@ -254,7 +255,7 @@ class LiveResynthStats:
     dropped_note_on: int = 0
 
 
-class LiveResynth:
+class LiveResynth(HostPickled):
     """Streaming analysis -> resynthesis: feed input blocks, pull output
     blocks (the RtResynth live loop in offline-steppable form).
 

@@ -14,7 +14,8 @@ log-spaced bands 100..20000 Hz — rt.resynth.lib.cpp:987-992):
 
 Port of cpp_audio_tpu/analysis/vocoder.py (both fast modulator paths — the
 decimated single-sideband one and the full-band one — the exact per-window
-modulator, the carrier vocode and `vocode`). The one-hot "strided sample" matmuls of the JAX package (a TPU
+modulator, the carrier vocode, `vocode` with its WAV taps, and the
+filter-bank variant `vocode_filter_bank` on ops/filters.py's scans). The one-hot "strided sample" matmuls of the JAX package (a TPU
 gather workaround) are plain indexing here, its chunked cumsum is
 torch.cumsum, and the matmul DFT is dropped.
 """
@@ -368,8 +369,79 @@ def modulator_alignment_rows(n: int, params: VocoderParams, n_mod_frames: int):
     return np.clip(np.arange(n_car_frames) - offset, 0, max(n_mod_frames - 1, 0))
 
 
+def _write_taps(debug_dir, sample_rate: int, taps: dict) -> None:
+    """Each named stage signal (a tensor) to <debug_dir>/<name>.wav."""
+    from pathlib import Path
+
+    from ..utils import wav as wavio
+
+    d = Path(debug_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    for name, x in taps.items():
+        wavio.write_wav(d / f"{name}.wav", x.cpu().numpy(), sample_rate)
+
+
+def vocode_filter_bank(modulator, carrier, params: VocoderParams, *,
+                       order: int = 1, debug_dir=None,
+                       device="cuda") -> torch.Tensor:
+    """Filter-bank + envelope-follower vocoder variant.
+
+    The reference preserves this pre-FFT design in comments
+    (rt.resynth.lib.vocoder.cpp:46-79 BandPass/EnvelopeFollower, :368-381
+    Modulator::feed, :700-717 Carrier::feed, orders :735-737): per band b
+    with edges (f_lo, f_hi):
+      modulator band   m_b = LP_N(f_hi, HP_N(f_lo, modulator))
+      band envelope  env_b = LP_1(f_lo * env_follower_cutoff_ratio, |m_b|)
+      carrier band     c_b = LP_N(f_hi, HP_N(f_lo, carrier))
+      vocoded          out = sum_b env_b * c_b
+    This is where `env_follower_cutoff_ratio` (rt.resynth.lib.cpp:985,
+    default 1/20) acts. Bands stack on a leading axis; each one-pole
+    cascade is a chunked linear recurrence (ops/filters), float32 on
+    `device`. debug_dir: per-band envelopes (clipped to +-1) and the raw
+    vocoded signal as WAVs, the JAX package's taps.
+    """
+    from ..ops import filters as flt
+    from ..utils.convert import freq_to_angle_increment
+
+    dev = torch.device(device)
+    sr = params.sample_rate
+    n = min(len(modulator), len(carrier))
+    if n == 0:
+        return torch.zeros(0, dtype=torch.float32, device=dev)
+    fdt = torch.float32
+    mod = torch.as_tensor(modulator, dtype=fdt, device=dev)[:n]
+    car = torch.as_tensor(carrier, dtype=fdt, device=dev)[:n]
+    edges = params.band_freqs()
+    f_lo = np.asarray(edges[:-1], np.float32)[:, None]     # (B, 1)
+    f_hi = np.asarray(edges[1:], np.float32)[:, None]
+
+    def alpha(f):
+        return flt.alpha_from_angle_increment(
+            np.asarray(freq_to_angle_increment(f, sr), np.float32), device=dev)
+
+    a_lo, a_hi = alpha(f_lo), alpha(f_hi)
+    a_env = alpha(f_lo * np.float32(params.env_follower_cutoff_ratio))
+
+    def band_pass(x):
+        y = flt.cascade(x[None, :].expand(len(edges) - 1, n), a_lo, order,
+                        kind="highpass")
+        return flt.cascade(y, a_hi, order, kind="lowpass")
+
+    env = flt.cascade(band_pass(mod).abs(), a_env, 1, kind="lowpass")
+    vocoded = torch.sum(env * band_pass(car), dim=0)
+    out = (params.volume_vocoded * vocoded
+           + params.volume_modulator * mod
+           + params.volume_carrier * car)
+    if debug_dir is not None:
+        _write_taps(debug_dir, sr, {
+            **{f"band_{b}": env[b].clamp(-1.0, 1.0) for b in range(env.shape[0])},
+            "vocoded": vocoded})
+    return out
+
+
 def vocode(modulator, carrier, params: VocoderParams, *,
-           exact_modulator: bool = False, device="cuda") -> torch.Tensor:
+           exact_modulator: bool = False, debug_dir=None,
+           device="cuda") -> torch.Tensor:
     """Offline vocoder: (modulator, carrier) mono signals -> mono output.
 
     Output sample t mixes volume_modulator*modulator + volume_carrier*carrier
@@ -377,6 +449,11 @@ def vocode(modulator, carrier, params: VocoderParams, *,
     float32 on `device`. exact_modulator=True takes the per-window FFT
     modulator (`_modulator_band_amps`, the reference's own form) instead of
     the O(n) whole-signal one.
+
+    debug_dir: when set, every stage is tapped to WAVs there — modulator,
+    carrier, per-band envelope signals, and the raw vocoded signal (the
+    reference's IMJ_DEBUG_VOCODER AsyncWavWriter taps,
+    rt.resynth.lib.vocoder.cpp:165-174,248-252).
     """
     dev = torch.device(device)
     sr = params.sample_rate
@@ -406,9 +483,17 @@ def vocode(modulator, carrier, params: VocoderParams, *,
             sample_rate=sr, shape=params.modulator_window_shape)
     rows = torch.as_tensor(modulator_alignment_rows(n, params, n_mod_frames),
                            device=dev)
-    vocoded = _carrier_vocode(carrier, amps[rows], bm_car, stride=S,
+    amps_aligned = amps[rows]
+    vocoded = _carrier_vocode(carrier, amps_aligned, bm_car, stride=S,
                               fft_len=car_fft)
     out_len = vocoded.shape[0]
+    if debug_dir is not None:
+        # band envelopes at analysis rate, upsampled to audio rate by hold
+        env = torch.repeat_interleave(amps_aligned, S, dim=0)[:out_len]
+        _write_taps(debug_dir, sr, {
+            "modulator": modulator, "carrier": carrier,
+            **{f"band_{b}": env[:, b].clamp(-1.0, 1.0) for b in range(env.shape[1])},
+            "vocoded": vocoded})
     return (params.volume_vocoded * vocoded
             + params.volume_modulator * modulator[:out_len]
             + params.volume_carrier * carrier[:out_len])

@@ -38,4 +38,28 @@ def to_tensor(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(a, dtype=dtype, device=torch.device(device))
 
 
+class _HostArray:
+    """A tensor's values as a host array, inside a pickled object's state."""
+
+    def __init__(self, array: np.ndarray):
+        self.array = array
+
+
+class HostPickled:
+    """Pickles the object's attributes with every tensor among them written
+    as a host array, and restores those onto the object's `device`
+    attribute on load: a snapshot taken on a card holds no device storage
+    and unpickles without torch.save's device mapping."""
+
+    def __getstate__(self):
+        return {k: _HostArray(v.detach().cpu().numpy()) if torch.is_tensor(v) else v
+                for k, v in self.__dict__.items()}
+
+    def __setstate__(self, state):
+        dev = state.get("device")
+        self.__dict__.update(
+            {k: torch.from_numpy(v.array).to(dev) if isinstance(v, _HostArray) else v
+             for k, v in state.items()})
+
+
 use_highest_precision()

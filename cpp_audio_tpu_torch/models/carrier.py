@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..core.events import Event, EventType
-from ..device import dtype_of
+from ..device import HostPickled, dtype_of
 from ..ops import envelopes, noise as noise_ops, oscillators
 
 NEVER = float(2**62)
@@ -186,7 +186,7 @@ def _carrier_block(fp, ip, osc_vols, pulse_levels, noise_table, t0: int, *,
     return torch.sum(vel * env * wave, dim=0)
 
 
-class CarrierSynth:
+class CarrierSynth(HostPickled):
     """Event-driven mono polyphonic carrier synth (on_event + compute).
 
     Same surface as models/streaming_synth.StreamingSynth; compute() returns

@@ -33,7 +33,7 @@ import torch
 
 from ..core import voices as voices_mod
 from ..core.events import Event, EventType
-from ..device import dtype_of
+from ..device import HostPickled, dtype_of
 from . import sine_synth, voicebank
 
 
@@ -49,7 +49,7 @@ class _Active:
     phase0: float = 0.0     # start angle at press (rad/pi)
 
 
-class StreamingSynth:
+class StreamingSynth(HostPickled):
     """Event-driven synth compute (on_event + compute(t0, n))."""
 
     def __init__(self, config: sine_synth.SineSynthConfig | None = None,

@@ -162,3 +162,60 @@ def test_kernel_on_a_live_pull(cuda_card):
         assert k_out.shape == p_out.shape == (n, 2)
         assert float(p_out.abs().max()) > 0.02
         assert float((k_out - p_out).abs().max()) <= ATOL
+
+
+def _chirp(n, sr, f0=220.0, f1=660.0):
+    t = np.arange(n) / sr
+    f = f0 * (f1 / f0) ** (t / t[-1])
+    return 0.5 * np.sin(2 * np.pi * np.cumsum(f) / sr)
+
+
+@pytest.mark.cuda
+def test_checkpointed_job_resumes_bitwise_on_the_card(cuda_card, tmp_path):
+    """A checkpointed job killed after two segments and resumed on the card
+    equals the uninterrupted run on the card bit for bit (every op on the
+    streaming path is deterministic there), and launches the kernel."""
+    from cpp_audio_tpu_torch.analysis import checkpoint
+    from cpp_audio_tpu_torch.analysis.presets_json import ResynthPreset
+
+    sr = 11025
+    voice = _chirp(int(1.4 * sr), sr)
+    preset = ResynthPreset(analysis_volume=1.0, vocoder_volume=0.6, voice_volume=0.1,
+                           analysis_output_feedback_gain=0.3, output_delay_seconds=0.15,
+                           window_size_seconds=0.05, window_center_stride_seconds=0.025,
+                           vocoder_modulator_window_size_seconds=0.04,
+                           vocoder_stride_seconds=0.01)
+    kw = dict(post="limit", segment_seconds=0.3, device=cuda_card)
+    cv.LAUNCHES = 0
+    full = checkpoint.run_offline_streaming(preset, voice, voice, sr, **kw)
+    assert cv.LAUNCHES > 0
+    path = tmp_path / "ck.bin"
+    assert checkpoint.run_offline_streaming(preset, voice, voice, sr, checkpoint_path=path,
+                                            max_segments=2, **kw) is None
+    resumed = checkpoint.run_offline_streaming(preset, voice, voice, sr,
+                                               checkpoint_path=path, **kw)
+    np.testing.assert_array_equal(resumed, full)
+    assert np.abs(full).max() > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_limiter_on_the_card_matches_the_cpu(cuda_card, dtype):
+    """limit and limit_streaming on cuda against the same calls on the CPU:
+    float64 at 1e-12 of the peak, float32 at 1e-6."""
+    from cpp_audio_tpu_torch.ops import limiter
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((200_000, 2)) * np.linspace(0, 3, 200_000)[:, None],
+                        dtype=dtype)
+    bar = 3e-12 if dtype == torch.float64 else 1e-6
+    ref = limiter.limit(x, device="cpu")
+    got = limiter.limit(x.to(cuda_card), device=cuda_card)
+    assert got.device.type == "cuda" and got.dtype == dtype
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0, atol=bar)
+    p = torch.zeros((), dtype=dtype, device=cuda_card)
+    parts = []
+    for s in range(0, x.shape[0], 512):
+        y, p = limiter.limit_streaming(x[s:s + 512].to(cuda_card), p, device=cuda_card)
+        parts.append(y)
+    np.testing.assert_allclose(torch.cat(parts).cpu().numpy(), ref.numpy(), rtol=0, atol=bar)
