@@ -81,7 +81,9 @@ Phases (any failure exits non-zero and prints no result):
      stages each synchronised; output finite within the limiter's ceiling,
      the WAV read back equal to the returned array, the mix equal to one
      rebuilt from resynthesize and vocode of the gained voice); J2 the same
-     job with feedback drones (gain 0.3, delay 1 s: wall, passes); J3
+     job with feedback drones (gain 0.3, delay 1 s: wall, passes), run on
+     the headline workload at 12 s (12 passes, each in the device
+     tracker's exact frame loop); J3
      checkpoint.run_job_checkpointed at 60 s, segment 5 s, killed after 4
      segments and resumed (walls, snapshot size, the kernel's launches:
      `launches_job`), at 12 s the resumed output bitwise equal to an
@@ -91,6 +93,30 @@ Phases (any failure exits non-zero and prints no result):
      the --job output on cuda against the CPU (full mix < 2e-3 of peak, a
      vocoder-only job atol 1e-4); the filter-bank vocoder at 60 s (walls,
      ops) against the CPU at atol 1e-4.
+ 12. the tune app and the DSP ops, with the tune preset files
+     (tests/test_harmonics.py:16-37: eased attack and release, 8
+     harmonics, low-pass 800 Hz) written into build/phase12: (a) the 60 s
+     rain stream (rain_notes seed 0) through apps.tune.render_notes, the
+     harmonics synth, on cuda: rows, segments, first wall and the median
+     of 3 warm walls, the kernel's launches (`launches_tune`, one per
+     segment, > 0), an instrumented run splitting host prep (bank,
+     segment slices, tables and copies) from the kernel's device time and
+     the low-pass; output finite, peak > 1e-3. (b) the kernel against its
+     plain version on the busiest segment's eased tables (bar 2e-5),
+     timed amortized beside its bound. (c) a seeded 64 KB blob sonified in
+     full (polyphony 4, ~4,000 notes, ~100 s): first and warm walls, launches
+     (`launches_sonify`), the same split. (d) the sampler: the rain stream
+     on two seeded pitched sample WAVs (wall, peak device memory, finite),
+     2 s of it on cuda against the CPU at 1e-6. (e) the 60 s headline
+     stereo mixdown convolved with a seeded 2 s stereo 48 kHz impulse
+     response (load_impulse_response resamples it to 44.1 kHz) on cuda
+     against the CPU (float32 1e-5 of peak, float64 1e-10), its wall; the
+     grey noise table of get_noise_tables(44100) against fir.fft_convolve
+     on cuda; apps.test_fft once. (f) every apps.tune mode at ~2 s on cuda
+     (score, --demo, --rain, --sonify, --sonify-full --polyphony 2 --loop 2
+     --modulo-pitch, --sample, --score2, --play), play_streaming with one
+     preset edit (1 reload), the score on cuda against the CPU (1e-4), and
+     every apps.wav_tools tool.
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -1357,6 +1383,7 @@ def _unmatched_notes(a, b):
 APP_DIR = "build/phase11"     # inputs, jobs and outputs of phase 11 (git-ignored)
 APP_SECONDS = 2.0             # J4: each app mode
 RESUME_SECONDS = 12.0         # J3: the bitwise resume check
+J2_SECONDS = 12.0             # J2: the feedback job (one pass per second of audio)
 SEGMENT_SECONDS = 5.0         # J3: audio seconds between snapshots
 
 
@@ -1468,9 +1495,10 @@ def phase_jobs_and_apps(card: str) -> dict:
     if not d_mix < 2e-3:
         raise RuntimeError(f"J1: the job's mix is not its legs': {d_mix}")
 
-    # J2: feedback drones
-    cfg2 = write_job("j2", n, _job_preset(analysis_output_feedback_gain=0.3,
-                                          output_delay_seconds=1.0))
+    # J2: feedback drones, on the headline workload at J2_SECONDS
+    n2 = int(SR * J2_SECONDS)
+    cfg2 = write_job("j2", n2, _job_preset(analysis_output_feedback_gain=0.3,
+                                           output_delay_seconds=1.0))
     calls, scans = [], []
     plain_resynthesize, plain_scan = rs.resynthesize, device_tracker._scan_tables
 
@@ -1492,8 +1520,9 @@ def phase_jobs_and_apps(card: str) -> dict:
         wall2 = time.perf_counter() - t0
     finally:
         rs.resynthesize, device_tracker._scan_tables = plain_resynthesize, plain_scan
-    passes = -(-n // SR)
-    print(f"[J2] feedback drones (gain 0.3, delay 1.0 s): wall {wall2:.3f} s on {card}; "
+    passes = -(-n2 // SR)
+    print(f"[J2] feedback drones (gain 0.3, delay 1.0 s), {J2_SECONDS:.0f} s job: wall "
+          f"{wall2:.3f} s on {card}; "
           f"{len(calls) - 1} passes of resynthesize on growing prefixes (ceil(n/D) = "
           f"{passes}) + 1 full; {len(scans)} of them took the device tracker's exact "
           f"frame loop (its violation flag set), {sum(scans):.3f} s in all; peak "
@@ -1758,6 +1787,441 @@ def phase_filter_bank(card, voice, carrier):
         raise RuntimeError("the filter-bank vocoder on cuda disagrees with the CPU")
 
 
+TUNE_DIR = "build/phase12"    # presets, samples and outputs of phase 12 (git-ignored)
+TUNE_SECONDS = 60.0           # (a), (d): the rain stream
+TUNE_APP_SECONDS = 2.0        # (d) cuda against cpu, (f) the --rain mode
+SONIFY_BYTES = 1 << 16        # (c): the seeded blob, sonified in full
+
+
+def write_tune_presets(d: str) -> str:
+    """The tune app's preset files (tests/test_harmonics.py:16-37):
+    EnvelopeFast A 1, H 1, D 2, S 4, R 4 dots (eased attack and release);
+    Harmonics lines of 5, 2, 0, 2, 0, 1, 0, 3 dots; LowPass 800 Hz."""
+    import os
+
+    os.makedirs(d, exist_ok=True)
+    with open(f"{d}/EnvelopeFast.txt", "w") as f:
+        f.write("A .\nH .\nD ..\nS ....\nR ....\n")
+    with open(f"{d}/Harmonics.txt", "w") as f:
+        f.write("\n".join("." * k for k in (5, 2, 0, 2, 0, 1, 0, 3)) + "\n")
+    with open(f"{d}/LowPass.txt", "w") as f:
+        f.write("800\n")
+    return d
+
+
+def write_tune_samples(d: str) -> list:
+    """Two seeded pitched samples (1.5 s, five partials, decaying) written
+    as WAVs through the port's utils/wav.py; returns the --sample specs.
+    The rain stream's pitches (104-175 Hz) select both (lower_bound)."""
+    from cpp_audio_tpu_torch.utils import wav as wavio
+
+    rng = np.random.default_rng(12)
+    t = np.arange(int(1.5 * SR)) / SR
+    specs = []
+    for freq in (140.0, 180.0):
+        s = sum(rng.uniform(0.2, 1.0) / k * np.sin(2 * np.pi * k * freq * t + rng.uniform(0, 6))
+                for k in range(1, 6))
+        s = np.concatenate([np.zeros(200), 0.5 * s * np.exp(-3.0 * t) / np.abs(s).max()])
+        wavio.write_wav(f"{d}/sample_{freq:.0f}.wav", s, SR)
+        specs.append(f"{freq:.0f}={d}/sample_{freq:.0f}.wav")
+    return specs
+
+
+class TuneProbe:
+    """Diagnostic instrumentation of one harmonics render (apps.tune
+    render_notes on cuda): host time in the bank build, the per-segment
+    slices and the table preparation with their host-to-device copies
+    (each call synchronised), the kernel's device time (CUDA events around
+    each launch), the low-pass, and each segment's tables."""
+
+    def __init__(self):
+        self.t = dict.fromkeys(("bank", "slice", "prepare", "lowpass"), 0.0)
+        self.events, self.tables, self.rows = [], [], 0
+
+    def __enter__(self):
+        import torch
+
+        from cpp_audio_tpu_torch.models import harmonics, voicebank
+        from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+        from cpp_audio_tpu_torch.ops import filters
+
+        self._saved = [(harmonics, "bank_from_schedule"), (voicebank, "_slice_bank"),
+                       (voicebank, "prepare_bank_arrays"), (filters, "cascade_fft"),
+                       (cv, "render_blocks_cuda")]
+        self._saved = [(m, a, getattr(m, a)) for m, a in self._saved]
+        plain = {a: f for _, a, f in self._saved}
+
+        def timed(key, name):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = plain[name](*a, **k)
+                torch.cuda.synchronize()
+                self.t[key] += time.perf_counter() - t0
+                if name == "bank_from_schedule":
+                    self.rows += out.n_rows
+                return out
+            return run
+
+        def kernel(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = plain["render_blocks_cuda"](*a, **k)
+            end.record()
+            self.events.append((start, end))
+            self.tables.append((a, k))
+            return out
+
+        harmonics.bank_from_schedule = timed("bank", "bank_from_schedule")
+        voicebank._slice_bank = timed("slice", "_slice_bank")
+        voicebank.prepare_bank_arrays = timed("prepare", "prepare_bank_arrays")
+        filters.cascade_fft = timed("lowpass", "cascade_fft")
+        cv.render_blocks_cuda = kernel
+        return self
+
+    def __exit__(self, *exc):
+        for m, a, f in self._saved:
+            setattr(m, a, f)
+
+    def report(self, wall: float) -> str:
+        import torch
+
+        torch.cuda.synchronize()
+        kernel_ms = sum(s.elapsed_time(e) for s, e in self.events)
+        host = self.t["bank"] + self.t["slice"] + self.t["prepare"]
+        rest = wall - host - self.t["lowpass"] - kernel_ms / 1e3
+        return (f"host prep {host * 1e3:.3f} ms (bank {self.t['bank'] * 1e3:.3f}, segment "
+                f"slices {self.t['slice'] * 1e3:.3f}, tables + copies "
+                f"{self.t['prepare'] * 1e3:.3f}); kernel {kernel_ms:.3f} ms device time in "
+                f"{len(self.events)} launches; low-pass {self.t['lowpass'] * 1e3:.3f} ms; "
+                f"the rest {rest * 1e3:.3f} ms, of a {wall * 1e3:.3f} ms instrumented wall")
+
+
+def _tune_render(notes, **kw):
+    """apps.tune.render_notes on cuda with the phase's presets, synchronised."""
+    import torch
+
+    from cpp_audio_tpu_torch.apps import tune
+
+    out, _ = tune.render_notes(notes, synth_dir=TUNE_DIR, sample_rate=SR, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return out
+
+
+def _check_audio(name, out, n_channels=2) -> float:
+    import torch
+
+    peak = float(out.abs().max())
+    if not (out.dim() == 2 and out.shape[1] == n_channels
+            and bool(torch.isfinite(out).all()) and peak > 1e-3):
+        raise RuntimeError(f"{name}: output {tuple(out.shape)} not finite or silent "
+                           f"(peak {peak})")
+    return peak
+
+
+def phase_tune(card: str) -> dict:
+    """Phase 12: the tune app and the DSP ops on cuda, (a) to (f) of the
+    module docstring. Returns the kernels-line keys it measures."""
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+    from cpp_audio_tpu_torch.utils import event_streams as es
+    from cpp_audio_tpu_torch.utils.interp import Itp
+
+    write_tune_presets(TUNE_DIR)
+    n = int(SR * TUNE_SECONDS)
+
+    # (a) the harmonics synth at width: the 60 s rain stream
+    notes = es.rain_notes(TUNE_SECONDS, sample_rate=SR, seed=0)
+    t0 = time.perf_counter()
+    _tune_render(notes)
+    first = time.perf_counter() - t0
+    walls = []
+    for i in range(3):
+        if i == 0:
+            cv.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = _tune_render(notes)
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches_tune = cv.LAUNCHES
+    with TuneProbe() as probe:
+        t0 = time.perf_counter()
+        _tune_render(notes)
+        wall_probe = time.perf_counter() - t0
+    wall = statistics.median(walls)
+    peak = _check_audio("(12a) rain", out)
+    print(f"[tune] (a) rain_notes({TUNE_SECONDS:.0f} s, seed 0), tune preset: {len(notes)} "
+          f"notes, {probe.rows} voice-bank rows, {len(probe.events)} segments; first "
+          f"{first:.3f} s, warm median {wall * 1e3:.3f} ms of 3 "
+          f"({', '.join(f'{w * 1e3:.3f}' for w in walls)} ms), {TUNE_SECONDS / wall:.1f}x "
+          f"realtime on {card}; kernel launches {launches_tune}; output "
+          f"{tuple(out.shape)} peak {peak:.4f}")
+    print(f"[tune] (a) {probe.report(wall_probe)}")
+    if launches_tune <= 0 or launches_tune != len(probe.events):
+        raise RuntimeError(f"(12a): {launches_tune} kernel launches for "
+                           f"{len(probe.events)} segments")
+
+    # (b) the kernel against its plain version on the busiest segment's
+    # eased tables
+    seg_args, seg_stat = max(probe.tables, key=lambda t: t[0][0].shape[0])
+    codes = set(seg_args[4].flatten().tolist())
+    if int(Itp.EASE_OUT_CUBIC) not in codes:
+        raise RuntimeError(f"(12b): the tune tables carry no eased curve ({codes})")
+    err = _hold(f"(12b) busiest rain segment, curve codes {sorted(codes)}", seg_args, seg_stat)
+    ms = cuda_ms_amortized(lambda: cv.render_blocks_cuda(*seg_args, **seg_stat))
+    plain_ms = cuda_ms(lambda: cv.render_blocks_plain(*seg_args, **seg_stat), reps=3)
+    bound = cv.kernel_bound(seg_args[0], seg_args[1], n_channels=2, **seg_stat)
+    print(f"[tune] (b) kernel on ({seg_args[0].shape[0]}, 8) x {seg_stat['n_blocks']} blocks "
+          f"of {seg_stat['block_size']}: {ms:.5f} ms amortized, plain {plain_ms:.3f} ms; "
+          f"bound {bound['bound_ms']:.6f} ms by {bound['bound_by']} "
+          f"({bound['live_voice_samples']} live voice-samples {bound['segments']}, "
+          f"{bound['bytes']} bytes); share {bound['bound_ms'] / ms:.4f}")
+
+    # (c) the full sonification of a seeded 64 KB blob, polyphony 4
+    blob = np.random.default_rng(8).integers(0, 256, SONIFY_BYTES, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    snotes = es.binary_sonification_notes_full(blob, polyphony=4, sample_rate=SR)
+    t_notes = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _tune_render(snotes)
+    first_s = time.perf_counter() - t0
+    walls_s = []
+    for i in range(3):
+        if i == 0:
+            cv.LAUNCHES = 0
+        t0 = time.perf_counter()
+        sout = _tune_render(snotes)
+        walls_s.append(time.perf_counter() - t0)
+        if i == 0:
+            launches_sonify = cv.LAUNCHES
+    wall_s = statistics.median(walls_s)
+    with TuneProbe() as sprobe:
+        t0 = time.perf_counter()
+        _tune_render(snotes)
+        wall_sprobe = time.perf_counter() - t0
+    secs = sout.shape[0] / SR
+    print(f"[tune] (c) binary_sonification_notes_full({SONIFY_BYTES} bytes, polyphony 4): "
+          f"{len(snotes)} notes ({t_notes:.3f} s on the host), {sprobe.rows} rows, "
+          f"{secs:.1f} s of audio; first {first_s:.3f} s, warm median {wall_s * 1e3:.3f} ms "
+          f"of 3 ({', '.join(f'{w * 1e3:.3f}' for w in walls_s)} ms), {secs / wall_s:.1f}x "
+          f"realtime on {card}; kernel launches {launches_sonify}; peak "
+          f"{_check_audio('(12c) sonify', sout):.4f}")
+    print(f"[tune] (c) {sprobe.report(wall_sprobe)}")
+    if launches_sonify <= 0:
+        raise RuntimeError("(12c): the sonification launched no kernel")
+
+    phase_tune_sampler(card, notes)
+    phase_dsp_ops(card)
+    phase_tune_apps(card)
+    return {"launches_tune": launches_tune, "launches_sonify": launches_sonify,
+            "ms_tune": ms, "plain_ms_tune": plain_ms, "bound_tune": bound["bound_ms"],
+            "max_abs_err_tune": err}
+
+
+def phase_tune_sampler(card, notes):
+    """(d): the 60 s rain stream on two pitched samples (wall, peak device
+    memory, finite output), then 2 s of it on cuda against the CPU at the
+    sampler's float32 bar (1e-6, tests/test_torch_sampler.py)."""
+    import torch
+
+    from cpp_audio_tpu_torch.apps import tune
+    from cpp_audio_tpu_torch.utils import event_streams as es
+
+    specs = write_tune_samples(TUNE_DIR)
+    _tune_render(notes, sample_files=specs)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = _tune_render(notes, sample_files=specs)
+    wall = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated() - base
+    print(f"[tune] (d) sampler, rain {TUNE_SECONDS:.0f} s on {len(specs)} samples: wall "
+          f"{wall * 1e3:.3f} ms ({TUNE_SECONDS / wall:.1f}x realtime) on {card}; peak device "
+          f"memory {mem / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held before; output "
+          f"{tuple(out.shape)} peak {_check_audio('(12d) sampler', out):.4f}")
+    short = es.rain_notes(TUNE_APP_SECONDS, sample_rate=SR, seed=0)
+    g = _tune_render(short, sample_files=specs)
+    c, _ = tune.render_notes(short, synth_dir=TUNE_DIR, sample_rate=SR, sample_files=specs,
+                             device="cpu")
+    diff = float((g.cpu() - c).abs().max())
+    print(f"[tune] (d) sampler {TUNE_APP_SECONDS} s, cuda against cpu: max|diff| {diff:.3e} "
+          f"(peak {float(c.abs().max()):.4f}, bar 1e-6)")
+    if not (g.shape == c.shape and diff <= 1e-6):
+        raise RuntimeError("(12d): the sampler on cuda disagrees with the CPU")
+
+
+def phase_dsp_ops(card):
+    """(e): the 60 s headline stereo mixdown through a seeded 2 s stereo
+    48 kHz impulse response loaded with load_impulse_response (resampled to
+    44.1 kHz) on cuda against the CPU (float32 at 1e-5 of peak, float64 at
+    1e-10); the noise tables' grey table against fir.fft_convolve on cuda;
+    apps.test_fft once."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cpp_audio_tpu_torch.apps import test_fft
+    from cpp_audio_tpu_torch.models import sine_synth, voicebank
+    from cpp_audio_tpu_torch.ops import fir, noise, reverb
+    from cpp_audio_tpu_torch.utils import wav as wavio
+
+    n = int(SR * SECONDS)
+    sch, cfg = make_synth_workload(SR, n)
+    mix = voicebank.render_bank(sine_synth.bank_from_schedule(sch, cfg), n,
+                                block_size=cfg.block_size, device="cuda")
+    rng = np.random.default_rng(21)
+    m = 2 * 48000
+    ir = rng.standard_normal((m, 2)) * np.exp(-np.arange(m) / 12000.0)[:, None] * 0.05
+    wavio.write_wav(f"{TUNE_DIR}/ir_48k.wav", ir, 48000)
+    rv = reverb.load_impulse_response(f"{TUNE_DIR}/ir_48k.wav", SR, 2, device="cuda")
+    rv_cpu = reverb.load_impulse_response(f"{TUNE_DIR}/ir_48k.wav", SR, 2, device="cpu")
+    rv.wet = rv_cpu.wet = 0.3
+    d_ir = float(np.abs(rv.ir - rv_cpu.ir).max())
+
+    def run():
+        y = reverb.apply_reverb(mix, rv)
+        torch.cuda.synchronize()
+        return y
+
+    run()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        g = run()
+        walls.append(time.perf_counter() - t0)
+    c = reverb.apply_reverb(mix.cpu(), rv_cpu, device="cpu")
+    peak = float(c.abs().max())
+    d32 = float((g.cpu() - c).abs().max()) / peak
+    g64 = reverb.apply_reverb(mix.double(), rv)
+    c64 = reverb.apply_reverb(mix.double().cpu(), rv_cpu, device="cpu")
+    d64 = float((g64.cpu() - c64).abs().max())
+    wall = statistics.median(walls)
+    print(f"[dsp] load_impulse_response (2 s stereo at 48 kHz -> {rv.ir.shape[0]} taps at "
+          f"44.1 kHz): cuda against cpu max|diff| {d_ir:.3e}; apply_reverb of the "
+          f"{SECONDS:.0f} s headline mixdown {tuple(mix.shape)} {mix.dtype}: warm median "
+          f"{wall * 1e3:.3f} ms of 3 ({', '.join(f'{w * 1e3:.3f}' for w in walls)} ms) on "
+          f"{card}; cuda against cpu: float32 max|diff|/peak {d32:.3e} (peak {peak:.4f}, bar "
+          f"1e-5), float64 max|diff| {d64:.3e} (bar 1e-10)")
+    if not (rv.ir.shape == (88200, 2) and d_ir <= 1e-10 and d32 <= 1e-5 and d64 <= 1e-10
+            and _check_audio("(12e) reverb", g) > 1e-3):
+        raise RuntimeError("(12e): the reverb on cuda disagrees with the CPU")
+
+    t0 = time.perf_counter()
+    tables = noise.get_noise_tables(SR)
+    t_tables = time.perf_counter() - t0
+    n_grey, taps = int(SR / 0.1), 1023
+    pink = noise.pink_noise_table(n_grey + taps, SR, 12348)
+    h = fir.loudness_fir_coefficients(SR, 4096, taps)
+    grey = fir.fft_convolve(pink, h, device="cuda")[taps:taps + n_grey]
+    grey = (grey / grey.abs().max()).cpu().numpy()
+    d_grey = float(np.abs(grey - tables["grey"]).max())
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = test_fft.main(["--device", "cuda"])
+    plots = text.getvalue().count("== loudness-adapted noise")
+    print(f"[dsp] get_noise_tables({SR}) in {t_tables:.3f} s (host): grey table "
+          f"{tables['grey'].shape} against fir.fft_convolve on cuda max|diff| {d_grey:.3e} "
+          f"(bar 1e-10); apps.test_fft --device cuda: rc {rc}, {plots} plots")
+    if not (d_grey <= 1e-10 and rc == 0 and plots == 7):
+        raise RuntimeError("(12e): the grey noise table or apps.test_fft failed")
+
+
+def phase_tune_apps(card):
+    """(f): every apps.tune mode at ~2 s on cuda, each writing its WAV;
+    --play with one preset edit (1 reload); the score mode on cuda against
+    the CPU (1e-4, the low-pass's bar); every apps.wav_tools tool."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from cpp_audio_tpu_torch.apps import tune, wav_tools
+    from cpp_audio_tpu_torch.utils import wav as wavio
+    from cpp_audio_tpu_torch.utils import wir
+
+    d = TUNE_DIR
+    rng = np.random.default_rng(4)
+    with open(f"{d}/blob22.bin", "wb") as f:
+        f.write(rng.integers(0, 256, 22, dtype=np.uint8).tobytes())
+    with open(f"{d}/blob20.bin", "wb") as f:
+        f.write(rng.integers(0, 256, 20, dtype=np.uint8).tobytes())
+    specs = write_tune_samples(d)
+    score = "do re mi fa sol la si Do"
+    modes = {  # name: argv, whose m_*.wav is the WAV it writes under TUNE_DIR
+        "score": [score, "m_score.wav", "--synth-dir", d, "--time-unit-ms", "140"],
+        "--demo": ["--demo", "m_demo.wav"],
+        "--rain": ["--rain", str(TUNE_APP_SECONDS), "m_rain.wav", "--synth-dir", d],
+        "--sonify": ["--sonify", f"{d}/blob22.bin", "m_sonify.wav", "--synth-dir", d],
+        "--sonify-full": ["--sonify", f"{d}/blob20.bin", "m_full.wav", "--sonify-full",
+                          "--polyphony", "2", "--loop", "2", "--modulo-pitch"],
+        "--sample": ([score + " Re Mi", "m_sample.wav", "--octave", "2", "--time-unit-ms",
+                      "140"] + [a for s in specs for a in ("--sample", s)]),
+        "--score2": ["do mi sol", "m_duo.wav", "--score2", "sol si re", "--octave2", "3",
+                     "--time-unit-ms", "300"],
+        "--play": [score, "m_play.wav", "--synth-dir", d, "--play", "--time-unit-ms", "140"],
+    }
+    for name, argv in modes.items():
+        out = next(f"{d}/{a}" for a in argv if a.startswith("m_"))
+        argv = [out if a.startswith("m_") else a for a in argv]
+        if os.path.exists(out):
+            os.remove(out)
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = tune.main(argv + ["--device", "cuda"])
+        wall = time.perf_counter() - t0
+        data, sr = wavio.read_wav(out)
+        peak = float(np.abs(data).max())
+        print(f"[tune apps] apps.tune {name}: rc {rc}, {wall:.3f} s, {data.shape[0] / sr:.2f} s "
+              f"of audio, peak {peak:.4f}: {text.getvalue().strip()[-90:]}")
+        if rc != 0 or not (np.isfinite(data).all() and peak > 1e-4):
+            raise RuntimeError(f"(12f): apps.tune {name} failed")
+
+    # --play with one preset edit half a second in: one reload
+    play = f"{d}/play"
+    shutil.rmtree(play, ignore_errors=True)
+    write_tune_presets(play)
+    notes = tune.score_to_notes(score, sample_rate=SR, time_unit_ms=140.0)
+    edited = []
+
+    def on_block(bi, t):
+        if not edited and t > SR // 2:
+            with open(f"{play}/Harmonics.txt", "w") as f:
+                f.write("--------\n")
+            edited.append(bi)
+
+    reloads, total = tune.play_streaming(notes, f"{play}/hot.wav", synth_dir=play,
+                                         sample_rate=SR, block_seconds=0.1,
+                                         on_block=on_block, device="cuda")
+    print(f"[tune apps] play_streaming with a Harmonics.txt edit at block {edited}: "
+          f"{reloads} reloads, {total} samples")
+    if reloads != 1:
+        raise RuntimeError(f"(12f): {reloads} preset reloads, 1 expected")
+
+    g, _ = tune.render_score(score, synth_dir=d, time_unit_ms=140.0, device="cuda")
+    c, _ = tune.render_score(score, synth_dir=d, time_unit_ms=140.0, device="cpu")
+    diff = float((g.cpu() - c).abs().max())
+    print(f"[tune apps] score mode, cuda against cpu: max|diff| {diff:.3e} (peak "
+          f"{float(c.abs().max()):.4f}, bar 1e-4)")
+    if not (g.shape == c.shape and diff <= 1e-4):
+        raise RuntimeError("(12f): the score on cuda disagrees with the CPU")
+
+    src = f"{d}/m_score.wav"
+    wir.write_wir(f"{d}/m_score.wir", wavio.read_wav(src)[0], SR)
+    for argv in (["count_channels", src], ["mod_wav", src, f"{d}/t_mod.wav"],
+                 ["self_convolve", src, f"{d}/t_self.wav"],
+                 ["join_non_zeros", src, f"{d}/t_join.wav"],
+                 ["wir_2_wav", f"{d}/m_score.wir", f"{d}/t_wir.wav"]):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = wav_tools.main(argv)
+        said = text.getvalue().strip()
+        if rc != 0 or not (said == "2" or os.path.exists(said)):
+            raise RuntimeError(f"(12f): apps.wav_tools {argv[0]} failed: {said}")
+        print(f"[tune apps] apps.wav_tools {argv[0]}: {said}")
+
+
 def main() -> int:
     try:
         card = card_line()
@@ -1784,6 +2248,7 @@ def main() -> int:
         phase_df_reference()
         measured.update(phase_live(card))
         measured.update(phase_jobs_and_apps(card))
+        measured.update(phase_tune(card))
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

@@ -11,9 +11,8 @@ noise is pink noise through the equal-loudness FIR (GaussianGreyNoiseAlgo,
 noise.h:167-211).
 
 Host-generated (numpy) since they are one-time constants shipped to the
-device. Host copy of cpp_audio_tpu/ops/noise.py; `grey_noise_table` needs the
-equal-loudness FIR of this package's ops/fir.py, which is not ported yet
-(ROADMAP A12), so it raises ImportError until then.
+device. Host copy of cpp_audio_tpu/ops/noise.py; `grey_noise_table` takes the
+equal-loudness FIR from this package's ops/fir.py.
 """
 
 from __future__ import annotations
