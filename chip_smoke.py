@@ -117,6 +117,32 @@ Phases (any failure exits non-zero and prints no result):
      --modulo-pitch, --sample, --score2, --play), play_streaming with one
      preset edit (1 reload), the score on cuda against the CPU (1e-4), and
      every apps.wav_tools tool.
+ 13. the procedural engine at bench.py's L5a widths (bench.py:454-602:
+     60 s at 44.1 kHz, "Heavy rain", BIRDS program 0, B = 64), on cuda:
+     (a) one WIND "Heavy rain" render with device-expanded controls and
+     with the host walks: first wall, median of 3 warm walls (each ending
+     in torch.cuda.synchronize), ATen ops, synchronising calls, peak
+     device memory, realtime factor, device idle share (profile), the warm
+     renders bitwise equal; (b) the same for "Bubbles" (order 129, the
+     deepest cascade); (c) one SoundEngine render of BIRDS program 0, then
+     batches of 64 at 60 s on fresh seeds (500-563, warmed on 100-163) for
+     BIRDS program 0 and "Talkative bird" (the largest tile): aggregate
+     realtime factor (64 x 60 s / wall), peak memory, a repeat of the
+     timed batch bitwise equal; (d) a WIND "Heavy rain" batch of 64 at
+     60 s the same way (an out-of-memory error fails the phase); (e) all
+     27 programs at 1 s on cuda against their 12-band fingerprints
+     (tests/test_golden_semantics.py's, copied here: 1.5 dB, 3 dB for
+     'Small animal eating' through apps.birds.render), and 2 s renders on
+     cuda against the CPU (float64 1e-9 of the peak; float32 2e-4 of the
+     peak for the SoundEngine, 1e-4 RMS-relative for WIND); (f) the apps
+     and the engine core on cuda: apps.birds --list, one one-shot per mode
+     at 2 s and a scripted --interactive session, the Birds facade
+     (quanta, a program change, a loop re-render), web_demo.make_server
+     around it on a localhost port (/api/info, /api/chunk, POST
+     /api/program), Wrapper.process with events (its voice-bank kernel
+     launches: `launches_wrapper`, > 0) and an AudioEngine with a
+     StreamingConvolver and the limiter against the CPU (2e-5 of the
+     peak).
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -407,17 +433,25 @@ def _profile_chain(run, tag=""):
     """Diagnostic: wall time by stage (synchronised after each) and device
     time by kernel over one warm chain run (not a pass/fail phase;
     torch.profiler may not see the device on every machine)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     stages = {}
     run(timings=stages)
     print(f"[{tag}stages] " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items())
           + f" (sum {sum(stages.values()) * 1e3:.3f} ms, synchronised per stage)")
+    _profile_run(run, tag)
+
+
+def _profile_run(run, tag="", top=12):
+    """Diagnostic: device time by kernel and the device's idle share over
+    one run, synchronised at its end."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
+            torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         rows = [(e.key, e.self_device_time_total, e.count)
                 for e in prof.key_averages()
@@ -430,7 +464,7 @@ def _profile_chain(run, tag=""):
     print(f"[{tag}profile] device kernels {busy:.3f} ms of {wall * 1e3:.3f} ms wall "
           f"(profiled run): device idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}; "
           f"{sum(r[2] for r in rows)} device activities (kernels and copies)")
-    for key, us, count in rows[:12]:
+    for key, us, count in rows[:top]:
         print(f"[{tag}profile] {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
@@ -2222,6 +2256,399 @@ def phase_tune_apps(card):
         print(f"[tune apps] apps.wav_tools {argv[0]}: {said}")
 
 
+PROC_DIR = "build/phase13"    # WAVs of phase 13's app runs (git-ignored)
+PROC_SECONDS = 60.0           # bench.py's L5a rows (bench.py:454-602)
+PROC_BATCH = 64
+PROC_SEEDS = list(range(500, 500 + PROC_BATCH))       # timed batches: fresh seeds
+PROC_WARM_SEEDS = list(range(100, 100 + PROC_BATCH))  # bench.py's warm-up seeds
+PROC_APP_SECONDS = 2.0        # (e) cuda against cpu, (f) the apps
+SE_F32_BAR = 2e-4             # tests/test_batched_serving.py:26
+WIND_RMS_BAR = 1e-4
+
+# 12-band dB fingerprints of every program (1 s render, seed 32, 440 Hz,
+# pan 0): tests/test_golden_semantics.py's table, copied so the script
+# stands alone
+PROC_FINGERPRINTS = {
+    ("birds", "Standard & Cute bird"): [-40.55, -39.05, -36.45, -33.29, -29.36, -21.61, 39.06, 56.86, -17.68, -36.60, -47.19, -54.36],
+    ("birds", "Scat bird"): [-24.94, -21.55, -20.23, -15.92, -10.89, 4.72, 55.99, 57.29, -4.47, -23.21, -34.07, -41.49],
+    ("birds", "Rhythmic bird"): [-21.05, -22.16, -17.48, -14.79, -8.07, 9.90, 49.43, 55.10, -1.39, -19.77, -30.25, -37.22],
+    ("birds", "Slow bird"): [-41.94, -41.19, -38.24, -35.12, -31.86, -24.86, 8.94, 53.64, -19.99, -37.89, -47.20, -53.51],
+    ("birds", "BiTone bird"): [-37.09, -34.56, -31.90, -28.20, -21.30, 2.93, 54.72, 56.86, -19.67, -36.29, -45.34, -51.56],
+    ("birds", "Happy bird 1"): [-3.41, -1.12, 1.33, 4.41, 8.76, 17.33, 55.00, 56.57, 13.39, 10.27, 8.02, 6.49],
+    ("birds", "Happy bird 2"): [-3.99, -1.80, 0.34, 2.61, 4.99, 8.19, 55.50, 53.40, 20.98, 4.51, -3.40, -9.68],
+    ("birds", "Laughing bird"): [-0.77, 1.48, 3.63, 5.94, 8.51, 12.42, 54.72, 54.26, 16.30, 8.67, 4.91, 2.81],
+    ("birds", "Talkative bird"): [-0.12, 2.09, 4.31, 6.75, 9.53, 13.18, 55.97, 55.82, 15.83, 10.21, 7.17, 5.36],
+    ("robots", "R2D2"): [-8.12, -5.22, 5.35, 9.00, 54.22, 50.19, 4.85, -10.07, -18.39, -25.84, -32.17, -37.33],
+    ("robots", "Communication"): [9.63, 12.07, 16.32, 22.37, 58.53, 56.51, 22.58, 17.68, 14.93, 12.63, 10.66, 9.22],
+    ("sweep", "Sweep 1"): [84.29, 79.80, 68.17, 49.20, 43.67, 40.61, 38.13, 35.87, 33.70, 31.62, 29.72, 28.31],
+    ("sweep", "Fullrange"): [44.04, 41.84, 39.60, 37.46, 35.28, 33.11, 30.94, 28.78, 26.65, 24.58, 22.69, 21.28],
+    ("wind", "Medium wind in trees"): [50.92, 50.50, 55.22, 59.11, 60.75, 61.31, 60.44, 58.62, 55.21, 51.37, 47.44, 43.86],
+    ("wind", "Steady wind"): [31.44, 41.63, 53.89, 60.36, 62.63, 61.00, 55.12, 45.42, 31.59, 15.89, 1.79, -3.72],
+    ("wind", "Strong wind"): [63.61, 62.82, 66.14, 67.81, 68.04, 68.11, 67.90, 67.56, 66.15, 64.07, 61.23, 57.61],
+    ("wind", "Vinyl cracks"): [-2.12, 0.76, 4.02, 7.47, 13.44, 28.72, 43.40, 50.92, 53.89, 54.30, 53.38, 51.13],
+    ("wind", "Small animal eating"): [-1.05, -1.37, 1.02, 3.82, 4.69, 9.55, 18.38, 23.85, 31.94, 32.99, 31.43, 27.52],
+    ("wind", "Heavy rain in a car"): [21.67, 22.17, 25.40, 28.45, 37.47, 51.76, 58.58, 62.05, 62.89, 62.99, 62.54, 61.51],
+    ("wind", "Light rain in a car"): [8.05, 11.07, 13.76, 16.86, 20.03, 30.97, 44.66, 51.87, 54.36, 54.98, 54.31, 52.49],
+    ("wind", "Heavy rain"): [25.96, 38.58, 55.02, 62.48, 65.70, 67.05, 67.50, 67.82, 67.49, 67.33, 67.22, 67.20],
+    ("wind", "Light rain"): [21.25, 21.78, 25.55, 31.67, 46.27, 57.69, 62.83, 65.02, 65.42, 65.35, 64.88, 63.95],
+    ("wind", "Bubbles"): [-34.36, -28.18, -8.85, 14.70, 22.07, 21.17, 17.59, 12.41, 3.74, -4.47, -16.72, -29.43],
+    ("wind", "Earth rumbling"): [61.43, 57.62, 51.96, 38.56, 8.68, 1.43, -1.45, -3.88, -6.11, -8.21, -10.13, -11.53],
+    ("wind", "Sine wind"): [-18.80, -16.59, -14.39, -11.91, -8.85, 33.10, 35.82, -4.06, -15.47, -23.04, -29.62, -35.26],
+    ("wind", "Kettle whistle pure"): [-20.19, -18.37, -16.12, -11.28, -5.40, -0.87, 7.03, 36.17, 18.30, -11.13, -17.73, -20.14],
+    ("wind", "Kettle whistle mixed"): [-13.69, -11.54, -9.25, -6.62, 3.69, 25.67, 40.90, 53.29, 49.93, 35.96, 19.04, 2.46],
+}
+
+
+def band_fingerprint(mono: np.ndarray, sr: int = SR, n_bands: int = 12) -> np.ndarray:
+    """tests/test_golden_semantics.band_fingerprint: 12 log-spaced bands
+    from 40 Hz to 16 kHz, energy in dB."""
+    spec = np.abs(np.fft.rfft(mono)) ** 2
+    freqs = np.fft.rfftfreq(len(mono), 1 / sr)
+    edges = np.logspace(np.log10(40), np.log10(16000), n_bands + 1)
+    return np.array([10 * np.log10(max(spec[(freqs >= edges[i]) & (freqs < edges[i + 1])].sum(),
+                                       1e-20)) for i in range(n_bands)])
+
+
+def _synced_wall(fn):
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _peak_memory(fn) -> tuple[int, int]:
+    """(peak device bytes allocated during one run above what was held
+    before it, bytes held before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held, held
+
+
+def _render_report(tag, fn, card, audio_seconds) -> dict:
+    """(a)-(c)'s single render: first wall, median of 3 warm walls, ATen
+    ops, synchronising calls, peak memory, realtime factor, profile; the
+    warm renders must be bitwise equal and finite."""
+    import torch
+
+    first, _ = _synced_wall(fn)
+    walls, outs = [], []
+    for _ in range(3):
+        w, out = _synced_wall(fn)
+        walls.append(w)
+        outs.append(out)
+    wall = statistics.median(walls)
+    ops = _dispatched_ops(fn)
+    syncs = _reported_syncs(fn)
+    peak, held = _peak_memory(fn)
+    out = outs[-1]
+    bitwise = all(torch.equal(o, out) for o in outs)
+    print(f"[proc] {tag}: {tuple(out.shape)} {out.dtype}; first {first:.3f} s, warm median "
+          f"{wall * 1e3:.3f} ms of 3 ({', '.join(f'{w * 1e3:.3f}' for w in walls)} ms), "
+          f"{audio_seconds / wall:.1f}x realtime on {card}; {ops} ATen ops; synchronising "
+          f"calls {syncs}; peak device memory {peak / 2**20:.1f} MiB above {held / 2**20:.1f} "
+          f"held; warm renders bitwise equal: {bitwise}")
+    _profile_run(fn, tag=f"proc {tag} ", top=8)
+    if not (bitwise and bool(torch.isfinite(out).all()) and float(out.abs().max()) > 1e-5):
+        raise RuntimeError(f"(13) {tag}: renders not finite, silent or not bitwise equal")
+    return {"wall": wall, "ops": ops, "peak": peak}
+
+
+def _batch_report(tag, render, card, n) -> None:
+    """(c)-(d)'s batch of PROC_BATCH: warmed on PROC_WARM_SEEDS, timed on
+    PROC_SEEDS; aggregate realtime factor, peak memory, profile; the timed
+    batch rendered again must be bitwise equal."""
+    import torch
+
+    first, _ = _synced_wall(lambda: render(PROC_WARM_SEEDS))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wall, out = _synced_wall(lambda: render(PROC_SEEDS))
+    peak = torch.cuda.max_memory_allocated() - held
+    again = render(PROC_SEEDS)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(again, out)
+    del again
+    secs = PROC_BATCH * n / SR
+    print(f"[proc] {tag}: batch {tuple(out.shape)} {out.dtype}; warm-up (seeds "
+          f"{PROC_WARM_SEEDS[0]}-{PROC_WARM_SEEDS[-1]}) {first:.3f} s; timed (seeds "
+          f"{PROC_SEEDS[0]}-{PROC_SEEDS[-1]}) {wall:.3f} s, aggregate {secs / wall:.1f}x "
+          f"realtime ({PROC_BATCH} x {n / SR:.0f} s) on {card}; peak device memory "
+          f"{peak / 2**30:.3f} GiB above {held / 2**30:.3f} held; repeat bitwise equal: "
+          f"{bitwise}")
+    if not (bitwise and bool(torch.isfinite(out).all()) and out.shape[0] == PROC_BATCH):
+        raise RuntimeError(f"(13) {tag}: batch not finite or not bitwise equal")
+    del out
+    _profile_run(lambda: render(PROC_SEEDS), tag=f"proc {tag} ", top=6)
+
+
+def phase_procedural(card: str) -> dict:
+    """Phase 13: the procedural engine and its apps on cuda, (a) to (f) of
+    the module docstring. Returns the kernels-line keys it measures."""
+    import torch
+
+    from cpp_audio_tpu_torch.models import soundengine, voice_presets, wind
+
+    n = int(SR * PROC_SECONDS)
+    rain = voice_presets.get_program(voice_presets.Mode.WIND, "Heavy rain")
+    bubbles = voice_presets.get_program(voice_presets.Mode.WIND, "Bubbles")
+    bird0 = voice_presets.PROGRAMS[voice_presets.Mode.BIRDS][0]
+    talk = voice_presets.get_program(voice_presets.Mode.BIRDS, "Talkative bird")
+
+    # (a), (b): single WIND renders, the serving path (device-expanded
+    # controls) and the host walks
+    for prog in (rain, bubbles):
+        for dc in (True, False):
+            _render_report(
+                f"({'a' if prog is rain else 'b'}) WIND {prog.name!r} (order "
+                f"{prog.filter_order}), {PROC_SECONDS:.0f} s, "
+                f"{'device controls' if dc else 'host walks'}",
+                lambda prog=prog, dc=dc: wind.render_program(
+                    prog, n, SR, seed=2, device_controls=dc, device="cuda"),
+                card, PROC_SECONDS)
+
+    # (c): one SoundEngine render, then the batches
+    _render_report(f"(c) SoundEngine {bird0.name!r}, {PROC_SECONDS:.0f} s",
+                   lambda: soundengine.render_program(bird0, 440.0, n, SR, seed=2,
+                                                      device="cuda"),
+                   card, PROC_SECONDS)
+    for prog in (bird0, talk):
+        specs = max(len(soundengine.SoundEngineScheduler(prog, SR, 440.0, seed=s).build_specs())
+                    for s in PROC_SEEDS)
+        _batch_report(f"(c) SoundEngine {prog.name!r} (up to {specs} specs a job)",
+                      lambda seeds, prog=prog: soundengine.render_program_batch(
+                          prog, 440.0, n, SR, seeds=seeds, device="cuda"), card, n)
+    # (d): the WIND batch
+    _batch_report(f"(d) WIND {rain.name!r}",
+                  lambda seeds: wind.render_program_batch(rain, n, SR, seeds=seeds,
+                                                          device="cuda"), card, n)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase_procedural_correctness()
+    return phase_procedural_apps(card)
+
+
+def _rms_rel(got, want) -> float:
+    return float(np.sqrt(((got - want) ** 2).mean()) / max(np.sqrt((want ** 2).mean()), 1e-12))
+
+
+def phase_procedural_correctness() -> None:
+    """(e): the 27 fingerprints on cuda; 2 s renders cuda against cpu."""
+    from cpp_audio_tpu_torch.apps import birds
+    from cpp_audio_tpu_torch.models import soundengine, voice_presets, wind
+
+    worst = []
+    for (mode, name), ref in sorted(PROC_FINGERPRINTS.items()):
+        if (mode, name) == ("wind", "Small animal eating"):
+            out, tol = birds.render("wind", name, 1.0, seed=32, device="cuda"), 3.0
+        elif mode == "wind":
+            p = voice_presets.get_program(voice_presets.Mode.WIND, name)
+            out, tol = wind.render_program(p, SR, SR, seed=32, device="cuda"), 1.5
+        else:
+            p = voice_presets.get_program(voice_presets.Mode(mode), name)
+            out = soundengine.render_program(p, 440.0, SR, SR, seed=32, pan=0.0,
+                                             dtype="float64", device="cuda")
+            tol = 1.5
+        host = out.cpu().numpy()
+        d = float(np.abs(band_fingerprint(host.sum(axis=1)) - np.asarray(ref)).max())
+        worst.append((d, tol, f"{mode}/{name}"))
+        if not (np.isfinite(host).all() and d <= tol):
+            raise RuntimeError(f"(13e) {mode}/{name}: fingerprint off by {d:.3f} dB (tol {tol})")
+    d, tol, which = max(worst)
+    print(f"[proc] (e) all {len(worst)} programs at 1 s on cuda: finite, fingerprints within "
+          f"tolerance; the largest deviation {d:.3f} dB ({which}, tol {tol})")
+
+    # the device expansion of the control walks on the card, bit for bit
+    # the host walk (tests/test_wind_noise.py:133-146's cases)
+    import torch
+
+    pink = wind._pink_dev(SR, "float32", "cpu").numpy()
+    for n_steps, itp, T in ((12, 0, 60000), (997, 8, 60000)):
+        host = wind.wind_long_walk(pink, 1234, n_steps, itp, T, prev0=0.37)
+        segs = wind._walk_segments_dev(torch.from_numpy(np.abs(pink)).to("cuda"),
+                                       torch.tensor([1234], device="cuda"),
+                                       torch.tensor([0.37], dtype=torch.float32, device="cuda"),
+                                       n_steps=n_steps, T=T)
+        dev = wind._expand_long_walk_dev(*segs, n_steps=n_steps, itp_code=itp, T=T)[0]
+        equal = np.array_equal(dev.cpu().numpy(), host)
+        print(f"[proc] (e) WIND walk expansion on cuda (n_steps {n_steps}, itp {itp}, {T} "
+              f"samples) against the host walk: bitwise equal {equal}")
+        if not equal:
+            raise RuntimeError("(13e): the device walk expansion differs from the host walk")
+
+    n = int(SR * PROC_APP_SECONDS)
+    cases = [("SoundEngine", voice_presets.PROGRAMS[voice_presets.Mode.BIRDS][0], {}),
+             ("SoundEngine", voice_presets.get_program(voice_presets.Mode.ROBOTS, "R2D2"), {}),
+             ("WIND", voice_presets.get_program(voice_presets.Mode.WIND, "Heavy rain"),
+              {"device_controls": True}),
+             ("WIND", voice_presets.get_program(voice_presets.Mode.WIND, "Heavy rain"), {}),
+             ("WIND", voice_presets.get_program(voice_presets.Mode.WIND, "Sine wind"), {})]
+    for kind, prog, kw in cases:
+        for dtype in ("float64", "float32"):
+            def run(dev):
+                if kind == "WIND":
+                    return wind.render_program(prog, n, SR, seed=5, dtype=dtype, device=dev,
+                                               **kw).cpu().numpy()
+                return soundengine.render_program(prog, 440.0, n, SR, seed=5, dtype=dtype,
+                                                  device=dev).cpu().numpy()
+
+            g, c = run("cuda"), run("cpu")
+            peak = float(np.abs(c).max())
+            rel = float(np.abs(g - c).max()) / peak
+            if dtype == "float64":
+                ok, said = rel <= 1e-9, f"max|diff|/peak {rel:.3e} (bar 1e-9)"
+            elif kind == "WIND":
+                rr = _rms_rel(g, c)
+                ok, said = rr <= WIND_RMS_BAR, f"RMS-relative {rr:.3e} (bar {WIND_RMS_BAR})"
+            else:
+                ok, said = rel <= SE_F32_BAR, f"max|diff|/peak {rel:.3e} (bar {SE_F32_BAR})"
+            print(f"[proc] (e) {kind} {prog.name!r} {kw or ''} {dtype}, {PROC_APP_SECONDS} s, "
+                  f"cuda against cpu: {said}, peak {peak:.4f}")
+            if not (ok and peak > 1e-5):
+                raise RuntimeError(f"(13e) {prog.name} {dtype}: cuda disagrees with cpu")
+
+
+def phase_procedural_apps(card: str) -> dict:
+    """(f): apps.birds, the Birds facade, the web demo, Wrapper.process and
+    an AudioEngine with the streaming post chain, on cuda."""
+    import contextlib
+    import io
+    import os
+    import threading
+    import urllib.request
+
+    import torch
+
+    from cpp_audio_tpu_torch.apps import birds, birds_stream, web_demo
+    from cpp_audio_tpu_torch.core import engine, events, wrapper
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+    from cpp_audio_tpu_torch.utils import wav as wavio
+
+    os.makedirs(PROC_DIR, exist_ok=True)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = birds.main(["--list", "--device", "cuda"])
+    listed = [ln for ln in text.getvalue().splitlines() if ln.startswith("  ")]
+    print(f"[proc apps] apps.birds --list: rc {rc}, {len(listed)} programs")
+    if rc != 0 or len(listed) != 27:
+        raise RuntimeError("(13f): apps.birds --list failed")
+    for mode, program in (("birds", "0"), ("robots", "R2D2"), ("sweep", "1"),
+                          ("wind", "Heavy rain")):
+        out = f"{PROC_DIR}/{mode}.wav"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = birds.main(["--mode", mode, "--program", program, "--seconds",
+                             str(PROC_APP_SECONDS), "--device", "cuda", out])
+        wall = time.perf_counter() - t0
+        data, sr = wavio.read_wav(out)
+        peak = float(np.abs(data).max())
+        print(f"[proc apps] apps.birds --mode {mode} --program {program!r}: rc {rc}, "
+              f"{wall:.3f} s, {data.shape[0] / sr:.2f} s of audio, peak {peak:.4f}")
+        if rc != 0 or not (np.isfinite(data).all() and 1e-5 < peak <= 1.0):
+            raise RuntimeError(f"(13f): apps.birds --mode {mode} failed")
+    said = io.StringIO()
+    notes = birds.interactive(mode="birds", program=0, seconds=PROC_APP_SECONDS,
+                              out_dir=f"{PROC_DIR}/session", stdin=io.StringIO("1\nx\nq\n"),
+                              stdout=said, seed=3, device="cuda")
+    wavs = sorted(os.listdir(f"{PROC_DIR}/session"))
+    print(f"[proc apps] apps.birds --interactive, script '1, x, q': {notes} notes, "
+          f"{len(wavs)} WAVs, quit: {'quitting' in said.getvalue()}")
+    if notes != 3 or len(wavs) < 3 or "quitting" not in said.getvalue():
+        raise RuntimeError("(13f): the interactive session failed")
+
+    # the Birds facade: quanta from one host copy per render
+    fac = birds_stream.Birds(SR, "birds", render_seconds=PROC_APP_SECONDS, device="cuda")
+    fac.note_on(440.0)
+    t0 = time.perf_counter()
+    quanta = [fac.process() for _ in range(100)]
+    t_q = time.perf_counter() - t0
+    fac.use_program(2)
+    loop = fac.process(int(SR * PROC_APP_SECONDS) + 4096)  # past the end: re-render
+    ok = (all(q.shape == (128, 2) and np.isfinite(q).all() for q in quanta)
+          and loop.shape == (int(SR * PROC_APP_SECONDS) + 4096, 2) and np.isfinite(loop).all()
+          and isinstance(fac._buf, np.ndarray) and fac._program == 2)
+    print(f"[proc apps] Birds facade: 100 quanta of 128 in {t_q * 1e3:.3f} ms (one render "
+          f"and its host copy, then host slices), program change, loop re-render "
+          f"{loop.shape}: ok {ok}")
+    if not ok:
+        raise RuntimeError("(13f): the Birds facade failed")
+
+    # the web demo around the facade, on a localhost port
+    httpd = web_demo.make_server(fac, port=0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/api/info", timeout=30) as r:
+            info_status, info = r.status, json.loads(r.read())
+        with urllib.request.urlopen(base + "/api/chunk?n=16384", timeout=60) as r:
+            chunk_status, pcm = r.status, np.frombuffer(r.read(), np.float32).reshape(-1, 2)
+        req = urllib.request.Request(base + "/api/program?i=4", method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            prog_status = r.status
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=10)
+    ok = (info_status == 200 and len(info["programs"]) == 9 and chunk_status == 200
+          and pcm.shape == (16384, 2) and np.isfinite(pcm).all() and prog_status == 200
+          and fac._program == 4)
+    print(f"[proc apps] web_demo.make_server(Birds(device='cuda')): /api/info {info_status} "
+          f"({len(info['programs'])} programs), /api/chunk?n=16384 {chunk_status} "
+          f"{pcm.shape}, POST /api/program?i=4 {prog_status}: ok {ok}")
+    if not ok:
+        raise RuntimeError("(13f): the web demo failed")
+
+    # Wrapper.process with events: each block with voices launches the kernel
+    w = wrapper.Wrapper(device="cuda")
+    script = [[events.mk_note_on(100, 440.0, 1.0, note_id=1),
+               events.mk_note_on(2000, 660.0, 0.7, note_id=2, pan=0.4)],
+              [events.mk_note_change(4096 + 300, 1, 452.0, 0.9)],
+              [events.mk_note_off(8192 + 5, note_id=1)], [events.mk_note_off(12288, note_id=2)],
+              [], []]
+    cv.LAUNCHES = 0
+    blocks = [w.process(evs, 4096) for evs in script]
+    torch.cuda.synchronize()
+    launches_wrapper = cv.LAUNCHES
+    out = torch.cat(blocks)
+    peak = float(out.abs().max())
+    print(f"[proc apps] Wrapper.process, {len(script)} blocks of 4096 with events: kernel "
+          f"launches {launches_wrapper}, output {tuple(out.shape)} {out.dtype} on "
+          f"{out.device}, peak {peak:.4f}")
+    if launches_wrapper <= 0 or not (bool(torch.isfinite(out).all()) and 1e-4 < peak <= 1.0):
+        raise RuntimeError("(13f): Wrapper.process failed")
+
+    # an AudioEngine with the streaming convolver and the limiter, cuda
+    # against cpu
+    ir = np.random.default_rng(9).standard_normal((SR // 2, 2)) * np.exp(
+        -np.arange(SR // 2) / 4000.0)[:, None] * 0.05
+
+    def run_engine(dev):
+        wr = wrapper.Wrapper(device=dev, with_limiter=False)
+        wr.engine.post = engine.AudioPost()
+        wr.engine.post.add(engine.StreamingConvolver(ir, wet=0.6, partition=2048, device=dev))
+        wr.engine.post.add(engine.StreamingLimiter(ceiling=0.5, sample_rate=SR, device=dev))
+        wr.engine.post.add(engine.clamp_guard)
+        return torch.cat([wr.process(evs, 4096) for evs in script]).cpu().numpy()
+
+    g, c = run_engine("cuda"), run_engine("cpu")
+    rel = float(np.abs(g - c).max()) / float(np.abs(c).max())
+    print(f"[proc apps] AudioEngine (StreamingSynth, StreamingConvolver {ir.shape[0]} taps, "
+          f"StreamingLimiter, clamp), {g.shape[0]} samples, cuda against cpu: max|diff|/peak "
+          f"{rel:.3e} (bar {KERNEL_BAR}), peak {float(np.abs(c).max()):.4f}")
+    if not rel <= KERNEL_BAR:
+        raise RuntimeError("(13f): the engine on cuda disagrees with the CPU")
+    return {"launches_wrapper": launches_wrapper}
+
+
 def main() -> int:
     try:
         card = card_line()
@@ -2249,6 +2676,7 @@ def main() -> int:
         measured.update(phase_live(card))
         measured.update(phase_jobs_and_apps(card))
         measured.update(phase_tune(card))
+        measured.update(phase_procedural(card))
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

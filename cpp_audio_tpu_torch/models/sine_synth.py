@@ -12,7 +12,8 @@ take effect when the element is loudness-compensated
 This module is a thin mapping from NoteSchedules onto the shared voice-bank
 renderer (models/voicebank.py) — each note is one bank row. Port of
 cpp_audio_tpu/models/sine_synth.py; the library entry point is
-bank_from_schedule -> render_schedule (or analysis/chain.run_offline_chain).
+bank_from_schedule -> render_schedule (or analysis/chain.run_offline_chain);
+render_to_wav writes the render to a WAV.
 """
 
 from __future__ import annotations
@@ -113,3 +114,14 @@ def render_schedule(schedule: NoteSchedule, n_samples: int,
     return voicebank.render_bank_sparse(
         bank, n_samples, block_size=config.block_size, dtype=config.dtype,
         device=device)
+
+
+def render_to_wav(schedule: NoteSchedule, n_samples: int, config: SineSynthConfig,
+                  path, *, device="cuda") -> torch.Tensor:
+    """render_schedule, written to a WAV at `path` through one host copy;
+    returns the render on `device`."""
+    from ..utils import wav
+
+    out = render_schedule(schedule, n_samples, config, device=device)
+    wav.write_wav(path, out.cpu().numpy(), config.sample_rate)
+    return out

@@ -1,9 +1,11 @@
 """ctypes bindings for the native (C++) host components in native/.
 
-Copied from cpp_audio_tpu/native.py, trimmed to the component this package
-uses so far: the per-frame pitch pipeline (native/pitchpipe.cpp,
-rt.resynth.lib.algo.cpp stages) and its fused offline table packer. It
-loads the repo's own library (NATIVE_DIR, shared with the JAX package).
+Copied from cpp_audio_tpu/native.py, trimmed to the components this package
+uses: the per-frame pitch pipeline (native/pitchpipe.cpp,
+rt.resynth.lib.algo.cpp stages) and its fused offline table packer, the
+lock-free SPSC float queue (native/ringbuffer.cpp) and the exact WIND
+control walks (native/windwalk.cpp). It loads the repo's own library
+(NATIVE_DIR, shared with the JAX package).
 
 The library auto-builds on first use (g++ via native/Makefile); callers fall
 back to the pure-Python implementations if no compiler is available.
@@ -63,6 +65,29 @@ def load_library():
         _DP, ctypes.c_int64, _FP,
     ]
 
+    lib.ringbuffer_create.restype = ctypes.c_void_p
+    lib.ringbuffer_create.argtypes = [ctypes.c_uint64]
+    lib.ringbuffer_destroy.argtypes = [ctypes.c_void_p]
+    for fn in ("ringbuffer_capacity", "ringbuffer_size", "ringbuffer_dropped"):
+        getattr(lib, fn).restype = ctypes.c_uint64
+        getattr(lib, fn).argtypes = [ctypes.c_void_p]
+    lib.ringbuffer_push.restype = ctypes.c_uint64
+    lib.ringbuffer_push.argtypes = [ctypes.c_void_p, _FP, ctypes.c_uint64]
+    lib.ringbuffer_pop.restype = ctypes.c_uint64
+    lib.ringbuffer_pop.argtypes = [ctypes.c_void_p, _FP, ctypes.c_uint64]
+
+    lib.wind_long_walk.argtypes = [_FP, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int32, ctypes.c_int,
+                                   ctypes.c_longlong, _FP]
+    lib.wind_short_walk.argtypes = [_FP, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_float, _FP, ctypes.c_longlong,
+                                    _FP]
+    lib.wind_long_walk_from.argtypes = [_FP, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_float, ctypes.c_int32,
+                                        ctypes.c_int, ctypes.c_longlong, _FP]
+    lib.wind_short_walk_from.argtypes = [_FP, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_float, ctypes.c_float, _FP,
+                                         ctypes.c_longlong, _FP]
     return lib
 
 
@@ -162,3 +187,88 @@ class NativePitchPipe:
             self._lib.pitchpipe_destroy(self._ctx)
         except Exception:
             pass
+
+
+class RingBuffer:
+    """Lock-free SPSC float queue (native/ringbuffer.cpp)."""
+
+    def __init__(self, min_capacity: int):
+        lib = load_library()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._rb = lib.ringbuffer_create(min_capacity)
+
+    def push(self, data) -> int:
+        data = np.ascontiguousarray(data, np.float32).reshape(-1)
+        return int(self._lib.ringbuffer_push(self._rb, data.ctypes.data_as(_FP),
+                                             len(data)))
+
+    def pop(self, n: int) -> np.ndarray:
+        out = np.empty(n, np.float32)
+        got = int(self._lib.ringbuffer_pop(self._rb, out.ctypes.data_as(_FP), n))
+        return out[:got]
+
+    @property
+    def size(self) -> int:
+        return int(self._lib.ringbuffer_size(self._rb))
+
+    @property
+    def capacity(self) -> int:
+        return int(self._lib.ringbuffer_capacity(self._rb))
+
+    @property
+    def dropped(self) -> int:
+        return int(self._lib.ringbuffer_dropped(self._rb))
+
+    def __del__(self):
+        try:
+            self._lib.ringbuffer_destroy(self._rb)
+        except Exception:
+            pass
+
+
+def wind_long_walk(table, start_pos: int, n_slow_steps: int, itp_kind: int,
+                   n_out: int, prev0: float | None = None) -> np.ndarray:
+    """Exact Ctrl<WindFreqIter<SlowIter<AbsIter<noise>>>> per-sample values
+    (native/windwalk.cpp); caller must check available().
+
+    prev0: when given, start from the reference's real spec-start state —
+    prev = prev0 (from a discarded position draw) with the iterator AT
+    start_pos, unadvanced (playNextSpec's forgetPastSignals-then-
+    set_sample_rate double init, sound.h:185-190). When None, the classic
+    convention: prev = |table[start_pos]|, iterator at start_pos+1."""
+    lib = load_library()
+    table = np.ascontiguousarray(table, np.float32)
+    out = np.empty(n_out, np.float32)
+    if prev0 is None:
+        lib.wind_long_walk(table.ctypes.data_as(_FP), len(table),
+                           int(start_pos), int(n_slow_steps), int(itp_kind),
+                           n_out, out.ctypes.data_as(_FP))
+    else:
+        lib.wind_long_walk_from(table.ctypes.data_as(_FP), len(table),
+                                int(start_pos), float(prev0),
+                                int(n_slow_steps), int(itp_kind), n_out,
+                                out.ctypes.data_as(_FP))
+    return out
+
+
+def wind_short_walk(table, start_pos: int, rate: float, inc_long,
+                    prev0: float | None = None) -> np.ndarray:
+    """Exact short-term wobble values (SlowIter retuned per sample from the
+    long-term increment, soundengine.h:134-143). prev0: see wind_long_walk."""
+    lib = load_library()
+    table = np.ascontiguousarray(table, np.float32)
+    inc_long = np.ascontiguousarray(inc_long, np.float32)
+    out = np.empty(len(inc_long), np.float32)
+    if prev0 is None:
+        lib.wind_short_walk(table.ctypes.data_as(_FP), len(table),
+                            int(start_pos), float(rate),
+                            inc_long.ctypes.data_as(_FP), len(inc_long),
+                            out.ctypes.data_as(_FP))
+    else:
+        lib.wind_short_walk_from(table.ctypes.data_as(_FP), len(table),
+                                 int(start_pos), float(prev0), float(rate),
+                                 inc_long.ctypes.data_as(_FP), len(inc_long),
+                                 out.ctypes.data_as(_FP))
+    return out

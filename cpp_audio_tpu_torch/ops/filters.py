@@ -104,6 +104,7 @@ def chunked_affine_scan(a, b, y0=0.0, *, axis: int = -1, chunk: int = 64,
             Ps.append(P)
         ylocal = torch.stack(ys, dim=-1)
         Ploc = torch.stack(Ps, dim=-1)
+        del ys, Ps, y, P  # the steps live on in the stacks
         # carries: z[k] = A[k]*z[k-1] + B[k] over the chunk axis
         z = scan_flat(Ploc[..., -1], ylocal[..., -1])
         carry = torch.nn.functional.pad(z[..., :-1], (1, 0))

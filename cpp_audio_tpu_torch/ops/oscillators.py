@@ -49,6 +49,47 @@ def phase_trajectory(phase0, increments, *, axis: int = -1):
     return phases, phases.select(axis, -1)
 
 
+def chunked_cumsum(x, *, chunk: int = 1024, wrap: float | None = None):
+    """Inclusive cumsum along the last axis in two levels: inside chunks of
+    `chunk`, then over the chunk totals (recursively), as the JAX package's
+    chunked_cumsum shapes it.
+
+    On CUDA, torch.cumsum scans a tensor of one row with a look-back scan
+    whose float sums differ from run to run, and a few long rows with one
+    block per row (~5-8 ms per 2.6M samples). Here every scan has many short
+    rows (a single row is scanned beside a zero row), so a long axis runs
+    in parallel and the association is fixed: results are reproducible.
+    wrap: the totals are taken mod `wrap` before recursing (phases: mod 2).
+    """
+    x = torch.as_tensor(x)
+    T = x.shape[-1]
+    rows = x.reshape(-1, T)
+    if T <= chunk:
+        if rows.shape[0] == 1:
+            out = torch.cumsum(torch.cat([rows, torch.zeros_like(rows)]), dim=-1,
+                               dtype=x.dtype)[:1]
+        else:
+            out = torch.cumsum(rows, dim=-1, dtype=x.dtype)
+        return out.reshape(x.shape)
+    pad = (-T) % chunk
+    within = torch.cumsum(torch.nn.functional.pad(rows, (0, pad)).reshape(
+        rows.shape[0], -1, chunk), dim=-1, dtype=x.dtype)
+    totals = within[..., -1]
+    if wrap is not None:
+        totals = torch.remainder(totals, wrap)
+    offsets = chunked_cumsum(totals, chunk=chunk, wrap=wrap) - totals
+    out = (within + offsets[..., None]).reshape(rows.shape[0], -1)[:, :T]
+    return out.reshape(x.shape)
+
+
+def wrapped_cumsum(increments):
+    """wrap(cumsum(increments)) along the last axis: the phases of
+    `phase_trajectory` from phase0 = 0, summed in float64 (chunked_cumsum,
+    reproducible on a card) and wrapped before the cast back."""
+    inc = torch.as_tensor(increments)
+    return wrap_phase(chunked_cumsum(inc.to(torch.float64), wrap=2.0)).to(inc.dtype)
+
+
 def phase_trajectory_const(phase0, increment, n: int, *, dtype=torch.float32,
                            device="cuda"):
     """Phases for a constant frequency without cumsum error accumulation:

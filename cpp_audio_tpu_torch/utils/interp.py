@@ -223,3 +223,28 @@ def ease_np(kind: Itp, x):
     return np.where(
         x < 0.5, 0.5 * ease_np(fin, 2.0 * x), 0.5 + 0.5 * ease_np(fout, 2.0 * x - 1.0)
     )
+
+
+def interpolate(kind: Itp, t, from_, to_minus_from, duration, *, device="cuda"):
+    """Reference-compatible `itp::interpolate(kind, t, from, toMinusFrom, duration)`.
+
+    Returns ``from + toMinusFrom * ease(t / duration)`` with t clamped into
+    [0, duration]. For PROPORTIONAL_VALUE_DERIVATIVE the path is exponential:
+    ``from * (to/from)**(t/duration)`` (requires from and to of the same sign
+    and nonzero). A floating tensor t keeps its dtype and device; host values
+    and integer tensors compute in float64 (the JAX package's x64 promotion)
+    on `device`.
+    """
+    if torch.is_tensor(t) and t.is_floating_point():
+        dt, dev = t.dtype, t.device
+    else:
+        dt = torch.float64
+        dev = t.device if torch.is_tensor(t) else torch.device(device)
+    t = t.to(dt) if torch.is_tensor(t) else torch.full((), float(t), dtype=dt, device=dev)
+    dur = duration.to(dev, dt) if torch.is_tensor(duration) else torch.full(
+        (), float(duration), dtype=dt, device=dev)
+    x = torch.clamp(t / torch.clamp(dur, min=1e-30), 0.0, 1.0)
+    if Itp(kind) == Itp.PROPORTIONAL_VALUE_DERIVATIVE:
+        to = from_ + to_minus_from
+        return from_ * torch.pow(to / from_, x)
+    return from_ + to_minus_from * _CURVES[Itp(kind)](x)
