@@ -143,6 +143,23 @@ Phases (any failure exits non-zero and prints no result):
      launches: `launches_wrapper`, > 0) and an AudioEngine with a
      StreamingConvolver and the limiter against the CPU (2e-5 of the
      peak).
+ 14. the device mesh (cpp_audio_tpu_torch/parallel/mesh.py): (a) one NCCL
+     rank on cuda:0 in this process (a file store under build/phase14), at
+     the headline width: render_bank_sharded against render_bank (equal to
+     the bit); the kernel at block_offset=3 against its plain version (bar
+     2e-5) and against render_bank from block 3 (equal to the bit); both
+     sharded STFTs of the 60 s mixdown against stft_sqmag (rtol 2e-4, atol
+     1e-8); make_sharded_chain and make_sharded_chain_2d on a (1, 1) mesh
+     against run_offline_chain_device: medians of 3 warm walls (each ending
+     in torch.cuda.synchronize()) beside the single-device chain's, kernel
+     launches (`launches_mesh`, `launches_mesh_2d`), collectives per step,
+     1e-3 of the peak and dropped equal. (b) two ranks sharing cuda:0
+     (parallel/launch.spawn): which collectives gloo and NCCL take on CUDA
+     tensors (a printed probe; the plan is fixed: NCCL takes no two ranks of
+     one communicator on one card, so (b) runs on gloo), then
+     make_sharded_chain at world 2, render_jobs_farm (2 groups of 1) and
+     render_jobs_pipelined (1 + 1) on the 2 s chain test workload against
+     the single-device chain on cuda, at (a)'s bars.
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -2649,6 +2666,216 @@ def phase_procedural_apps(card: str) -> dict:
     return {"launches_wrapper": launches_wrapper}
 
 
+MESH_DIR = "build/phase14"    # process-group stores of phase 14 (git-ignored)
+MESH_SECONDS = 2.0            # (b): each chain and job
+PROBE_BACKENDS = ("gloo", "nccl")  # NCCL refuses: the probe reports it
+MESH_BAR = 1e-3               # of the peak: JAX's sharded-chain bar (tests/test_parallel.py:96-100)
+
+
+def _mesh_rel(got, ref) -> float:
+    """max |got - ref| / peak(ref) over ref's length (the sharded chains'
+    stereo runs longer: its frames are padded to the world size)."""
+    m = min(got.shape[0], ref.shape[0])
+    return float((got[:m] - ref[:m]).abs().max()) / max(float(ref[:m].abs().max()), 1e-9)
+
+
+def _hold_mesh(tag, got, ref, bar=MESH_BAR) -> None:
+    """(stereo, vocoded, dropped) against a single-device chain result."""
+    stereo, voc, dropped = got[:3]
+    e_r, e_v = _mesh_rel(stereo, ref.resynth), _mesh_rel(voc, ref.vocoded)
+    print(f"[mesh] {tag}: resynth {tuple(stereo.shape)} max|diff|/peak {e_r:.3e}, "
+          f"vocoded {e_v:.3e} (bar {bar:g}), dropped {int(dropped)} / {int(ref.dropped)}")
+    if not (e_r < bar and e_v < bar and int(dropped) == int(ref.dropped)):
+        raise RuntimeError(f"{tag} disagrees with the single-device chain")
+
+
+def probe_collectives(backend_name, device="cuda"):
+    """One rank's report of which collectives its process group takes on
+    tensors of `device` (a diagnostic: phase 14 (b)'s plan is fixed, not
+    chosen from this)."""
+    import torch
+    import torch.distributed as dist
+
+    from cpp_audio_tpu_torch.parallel import mesh
+
+    dev = mesh._rank_device(device)
+    n = dist.get_world_size()
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(torch.ones(4, device=dev)),
+        gather.__name__: lambda: gather(torch.empty(4 * n, device=dev),
+                                        torch.ones(4, device=dev)),
+        "broadcast": lambda: dist.broadcast(torch.ones(4, device=dev), src=0),
+    }
+    took = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            took[name] = "took"
+        except Exception as exc:  # noqa: BLE001 - the probe reports each refusal
+            took[name] = f"refused ({type(exc).__name__}: {str(exc).splitlines()[0][:120]})"
+    return {backend_name: took}
+
+
+def phase_mesh(card: str) -> dict:
+    """Phase 14: parallel/mesh.py on the card. (a) one NCCL rank in this
+    process at the headline width; (b) two ranks sharing cuda:0 on gloo.
+    Returns the kernels-line keys it measures."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from cpp_audio_tpu_torch.analysis import chain
+    from cpp_audio_tpu_torch.models import voicebank
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+    from cpp_audio_tpu_torch.ops import stft
+    from cpp_audio_tpu_torch.parallel import launch, mesh
+
+    os.makedirs(MESH_DIR, exist_ok=True)
+    store = os.path.abspath(os.path.join(MESH_DIR, "nccl_store"))
+    if os.path.exists(store):
+        os.remove(store)
+    n = int(SR * SECONDS)
+    sch, cfg = make_synth_workload(SR, n)
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
+    B = cfg.block_size
+    out = {}
+
+    # (a) one NCCL rank on cuda:0, in this process
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        m = mesh.default_mesh(device="cuda")
+        print(f"[mesh] (a) {dist.get_backend()} world {dist.get_world_size()} on "
+              f"{torch.cuda.get_device_name(0)}; gather: dist.{mesh.ALL_GATHER_NAME}")
+        got = mesh.render_bank_sharded(bank, n, block_size=B, mesh=m, device="cuda")
+        ref = voicebank.render_bank(bank, n, block_size=B, device="cuda")
+        torch.cuda.synchronize()
+        equal = torch.equal(got, ref)
+        print(f"[mesh] (a) render_bank_sharded {tuple(got.shape)} against render_bank: "
+              f"equal to the bit {equal}")
+        if not equal:
+            raise RuntimeError("(14a): render_bank_sharded differs from render_bank")
+
+        args, st = voicebank.prepare_bank_arrays(bank, n, B, device="cuda")
+        off_st = dict(block_size=B, n_blocks=st["n_blocks"] - 3, block_offset=3)
+        k_out = cv.render_blocks_cuda(*args, **off_st)
+        p_out = cv.render_blocks_plain(*args, **off_st)
+        torch.cuda.synchronize()
+        err_off = float((k_out - p_out).abs().max())
+        # the same launch geometry from block 3 on: equal to the bit
+        same = torch.equal(k_out[: n - 3 * B], ref[3 * B:])
+        print(f"[mesh] (a) kernel block_offset=3 ({off_st['n_blocks']} blocks of {B}) "
+              f"against its plain version: max|diff| {err_off:.3e} (bar {KERNEL_BAR}); "
+              f"equal to render_bank from sample {3 * B}: {same}")
+        if not (err_off <= KERNEL_BAR and same):
+            raise RuntimeError(f"(14a): the kernel at block_offset=3 disagrees: {err_off}, {same}")
+        out["max_abs_err_offset"] = err_off
+
+        mono = ref.sum(dim=1)
+        w = stft.gaussian_window(rcfg.window_size)
+        single = stft.stft_sqmag(mono, w, rcfg.stride, device="cuda")
+        for name, fn in (("stft_sqmag_sharded", mesh.stft_sqmag_sharded),
+                         ("stft_sqmag_sharded_halo", mesh.stft_sqmag_sharded_halo)):
+            sq = fn(mono, w, rcfg.stride, mesh=m, device="cuda")
+            ok = sq.shape == single.shape and bool(torch.allclose(sq, single, rtol=2e-4, atol=1e-8))
+            print(f"[mesh] (a) {name} {tuple(sq.shape)} on the 60 s mixdown against "
+                  f"stft_sqmag: max|diff| {float((sq - single).abs().max()):.3e}, within "
+                  f"rtol 2e-4 atol 1e-8 {ok}")
+            if not ok:
+                raise RuntimeError(f"(14a): {name} disagrees with stft_sqmag")
+
+        def device_chain():
+            res = chain.run_offline_chain_device(bank, n, rcfg, vparams, carrier,
+                                                 block_size=B, device="cuda")
+            torch.cuda.synchronize()
+            return res
+
+        device_chain()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            single_res = device_chain()
+            walls.append(time.perf_counter() - t0)
+        base = statistics.median(walls)
+        print(f"[mesh] (a) run_offline_chain_device: median {base * 1e3:.3f} ms of 3 warm "
+              f"({', '.join(f'{x * 1e3:.3f}' for x in walls)} ms) on {card}")
+        m2 = mesh.default_mesh_2d(1, 1, device="cuda")
+        for key, build in (
+                ("launches_mesh", mesh.make_sharded_chain(m, n, rcfg, vparams, block_size=B,
+                                                          device="cuda")),
+                ("launches_mesh_2d", mesh.make_sharded_chain_2d(m2, n, rcfg, vparams,
+                                                                block_size=B, device="cuda"))):
+            step = build(bank, carrier)
+
+            def run():
+                res = step()
+                torch.cuda.synchronize()
+                return res
+
+            run()
+            walls = []
+            for i in range(3):
+                if i == 0:
+                    cv.LAUNCHES = 0
+                t0 = time.perf_counter()
+                res = run()
+                walls.append(time.perf_counter() - t0)
+                if i == 0:
+                    out[key] = cv.LAUNCHES
+            wall = statistics.median(walls)
+            tag = "make_sharded_chain" if key == "launches_mesh" else "make_sharded_chain_2d (1, 1)"
+            print(f"[mesh] (a) {tag}: median {wall * 1e3:.3f} ms of 3 warm "
+                  f"({', '.join(f'{x * 1e3:.3f}' for x in walls)} ms; {wall / base:.3f}x the "
+                  f"single-device chain) on {card}; kernel launches {out[key]}; "
+                  f"collectives per step {step.collective_counts()}")
+            if out[key] <= 0 or not all(bool(torch.isfinite(t).all()) for t in res[:2]):
+                raise RuntimeError(f"(14a): {tag} launched no kernel or is not finite")
+            _hold_mesh(f"(a) {tag} against run_offline_chain_device", res, single_res)
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two ranks sharing cuda:0. NCCL takes no two ranks of one
+    # communicator on one card; gloo takes all_reduce, the gather and
+    # broadcast on CUDA tensors (the probe prints what each took)
+    took = {}
+    for backend in PROBE_BACKENDS:
+        took.update(launch.spawn(2, probe_collectives, backend, "cuda", backend=backend,
+                                 device="cuda", timeout=120, pg_timeout=30,
+                                 store_dir=MESH_DIR))
+    print(f"[mesh] (b) two ranks on cuda:0, collectives on CUDA tensors: {json.dumps(took)}")
+    n2 = int(SR * MESH_SECONDS)
+    sch2, cfg2 = make_chain_test_workload(SR, n2)
+    bank2, rcfg2, vp2, _ = _chain_inputs(n2, sch2, cfg2)
+    cars = [np.sign(np.sin(2 * np.pi * f * np.arange(n2) / SR)) for f in (110.0, 220.0)]
+    refs = [chain.run_offline_chain_device(bank2, n2, rcfg2, vp2, c, block_size=cfg2.block_size,
+                                           device="cuda") for c in cars]
+    kw = {"block_size": cfg2.block_size, "device": "cuda"}
+    calls = [(launch.chain_outputs, (n2, rcfg2, vp2, bank2, cars[0]), kw),
+             (mesh.render_jobs_farm, ([bank2, bank2], n2, rcfg2, vp2, cars), kw),
+             (mesh.render_jobs_pipelined, ([bank2, bank2], n2, rcfg2, vp2, cars), kw)]
+    t0 = time.perf_counter()
+    chain2, farm, piped = launch.spawn(2, launch.run_calls, calls, backend="gloo",
+                                       device="cuda", timeout=400, store_dir=MESH_DIR)
+    print(f"[mesh] (b) gloo, 2 ranks on cuda:0: the three runs in {time.perf_counter() - t0:.1f} s "
+          f"(spawn and imports included); chain collectives per step {chain2[3]}")
+    cpu_refs = [chain.OfflineChainResult(r.resynth.cpu(), r.vocoded.cpu(), r.n_frames,
+                                         dropped=int(r.dropped)) for r in refs]
+
+    def tensors(job):
+        return tuple(torch.as_tensor(np.asarray(x)) for x in job[:3])
+
+    _hold_mesh("(b) make_sharded_chain at world 2", tensors(chain2), cpu_refs[0])
+    for j in range(2):
+        _hold_mesh(f"(b) render_jobs_farm (2 groups of 1), job {j}", tensors(farm[j]),
+                   cpu_refs[j])
+        _hold_mesh(f"(b) render_jobs_pipelined (1 + 1), job {j}", tensors(piped[j]),
+                   cpu_refs[j])
+    return out
+
+
 def main() -> int:
     try:
         card = card_line()
@@ -2677,6 +2904,7 @@ def main() -> int:
         measured.update(phase_jobs_and_apps(card))
         measured.update(phase_tune(card))
         measured.update(phase_procedural(card))
+        measured.update(phase_mesh(card))
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

@@ -6,7 +6,10 @@
 // (cpp_audio_tpu/models/voicebank.py:180 _render_block), so every voice-bank
 // render of the port on CUDA runs here.
 //
-// What it computes, per time block b, sample k of that block and voice row v:
+// What it computes, per time block b, sample k of that block and voice row v
+// (b counts from block_offset: a launch renders blocks block_offset ..
+// block_offset + n_blocks - 1 of the timeline into its output's blocks
+// 0 .. n_blocks - 1; a compacted table's rows stay indexed by the local b):
 //   phase  = ((b*B - press + 1) + k) * inc + phase0   mod 2^32   (exact NCO)
 //            bitcast to int32, times 2^-31 -> rad/pi in [-1, 1)
 //   env    = closed-form AHDSR from int32 sample offsets (attack, hold,
@@ -227,7 +230,8 @@ voicebank_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
                  const long long* __restrict__ up,
                  const float* __restrict__ gains,
                  const int* __restrict__ codes, float* __restrict__ out,
-                 int n_rows, long long block_row_stride, int block_size) {
+                 int n_rows, long long block_row_stride, int block_size,
+                 int block_offset) {
   __shared__ Row s_row[kThreads];
   __shared__ float s_g[kThreads][C];
   __shared__ int s_count[kWarps];
@@ -239,7 +243,7 @@ voicebank_kernel(const float* __restrict__ fp, const int* __restrict__ ip,
   const long long row0 = (long long)b * block_row_stride;
   // int32 sample arithmetic as in the JAX package; the subtractions below
   // run in unsigned so a wrap (only for the +-FAR "never" clamp) is defined
-  const unsigned b0 = (unsigned)b * (unsigned)block_size;
+  const unsigned b0 = (unsigned)(b + block_offset) * (unsigned)block_size;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int k0 = tile0 + (int)threadIdx.x * kSamplesPerThread;
@@ -391,10 +395,11 @@ template <int C>
 void launch(const float* fp, const int* ip, const long long* up,
             const float* gains, const int* codes, float* out, int n_rows,
             long long block_row_stride, int block_size, int n_blocks,
-            cudaStream_t stream) {
+            int block_offset, cudaStream_t stream) {
   const dim3 grid((block_size + kTile - 1) / kTile, n_blocks);
   voicebank_kernel<C><<<grid, kThreads, 0, stream>>>(
-      fp, ip, up, gains, codes, out, n_rows, block_row_stride, block_size);
+      fp, ip, up, gains, codes, out, n_rows, block_row_stride, block_size,
+      block_offset);
 }
 
 }  // namespace
@@ -403,25 +408,28 @@ void launch(const float* fp, const int* ip, const long long* up,
 // (ops/cuda_voicebank.KERNEL_TILE mirrors it).
 extern "C" int voicebank_tile(void) { return kTile; }
 
-// Renders n_blocks blocks of block_size samples into out (n_blocks*block_size,
-// n_channels) float32. Row r of block b is read at index b*block_row_stride + r
-// of fp (.., 8) f32, ip (.., 2) int32 [press, release], up (.., 2) int64
-// [inc, phase0] uint32 words, gains (.., n_channels) f32 and codes (.., 3)
-// int32. Returns the cudaError_t of the launch (0 on success).
+// Renders n_blocks blocks of block_size samples, the timeline's blocks
+// block_offset .. block_offset + n_blocks - 1, into out (n_blocks*block_size,
+// n_channels) float32. Row r of output block b is read at index
+// b*block_row_stride + r of fp (.., 8) f32, ip (.., 2) int32 [press,
+// release], up (.., 2) int64 [inc, phase0] uint32 words, gains
+// (.., n_channels) f32 and codes (.., 3) int32. Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int voicebank_render(const float* fp, const int* ip,
                                 const long long* up, const float* gains,
                                 const int* codes, float* out, int n_rows,
                                 int n_channels, long long block_row_stride,
-                                int block_size, int n_blocks, void* stream) {
+                                int block_size, int n_blocks, int block_offset,
+                                void* stream) {
   if (n_blocks <= 0 || block_size <= 0) return 0;
   if (n_rows < 0 || n_blocks > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n_channels == 1) {
     launch<1>(fp, ip, up, gains, codes, out, n_rows, block_row_stride,
-              block_size, n_blocks, s);
+              block_size, n_blocks, block_offset, s);
   } else if (n_channels == 2) {
     launch<2>(fp, ip, up, gains, codes, out, n_rows, block_row_stride,
-              block_size, n_blocks, s);
+              block_size, n_blocks, block_offset, s);
   } else {
     return (int)cudaErrorInvalidValue;  // mono and stereo mixdowns only
   }

@@ -209,21 +209,26 @@ def compact_block_args(args, statics):
 
 
 def voicebank_blocks_impl(fp, ip, up, gains, codes, *, block_size: int,
-                          n_blocks: int) -> torch.Tensor:
+                          n_blocks: int, block_offset: int = 0) -> torch.Tensor:
     """Render n_blocks blocks of block_size samples from dense (V, ·)
-    tables. Returns (n_blocks, block_size, C)."""
+    tables, starting at the timeline's block `block_offset` (the 2-D
+    sharded chain renders its time slice so). Returns (n_blocks,
+    block_size, C)."""
     out = cuda_voicebank.render_blocks(fp, ip, up, gains, codes,
-                                       block_size=block_size, n_blocks=n_blocks)
+                                       block_size=block_size, n_blocks=n_blocks,
+                                       block_offset=block_offset)
     return out.view(n_blocks, block_size, -1)
 
 
 def voicebank_blocks_compact_impl(fpb, ipb, upb, gainsb, codesb, *,
-                                  block_size: int, n_blocks: int) -> torch.Tensor:
+                                  block_size: int, n_blocks: int,
+                                  block_offset: int = 0) -> torch.Tensor:
     """voicebank_blocks_impl over per-block compacted voice tables
-    (compact_block_args): block b reads its own (V_max, ·) rows.
-    Returns (n_blocks, block_size, C)."""
+    (compact_block_args): block b reads its own (V_max, ·) rows and renders
+    the timeline's block b + block_offset. Returns (n_blocks, block_size, C)."""
     out = cuda_voicebank.render_blocks(fpb, ipb, upb, gainsb, codesb,
-                                       block_size=block_size, n_blocks=n_blocks)
+                                       block_size=block_size, n_blocks=n_blocks,
+                                       block_offset=block_offset)
     return out.view(n_blocks, block_size, -1)
 
 

@@ -14,7 +14,11 @@ axis on every table for the per-block compacted layout
     up    (.., V, 2) int64  [inc, phase0] uint32 NCO words, in [0, 2^32)
     gains (.., V, C) float
     codes (.., V, 3) int32  attack / decay / release easing codes
-Returns (n_blocks * block_size, C).
+Returns (n_blocks * block_size, C). `block_offset` (default 0) shifts the
+rendered blocks along the timeline: output block b is the timeline's block
+b + block_offset (its samples start at (b + block_offset) * block_size),
+while a compacted table's rows stay indexed by b. The 2-D sharded chain
+(parallel/mesh.make_sharded_chain_2d) renders its time slice this way.
 
 `render_blocks` dispatches on the tensors' device: CPU tensors take the
 plain PyTorch version, CUDA tensors launch the kernel (or raise). There is
@@ -95,14 +99,15 @@ def load_library() -> ctypes.CDLL:
     lib.voicebank_render.restype = ctypes.c_int
     lib.voicebank_render.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_int, vp]
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     vp]
     lib.voicebank_tile.restype = ctypes.c_int
     lib.voicebank_tile.argtypes = []
     return lib
 
 
 def render_blocks_cuda(fp, ip, up, gains, codes, *, block_size: int,
-                       n_blocks: int) -> torch.Tensor:
+                       n_blocks: int, block_offset: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel on torch.cuda.current_stream(); float32 only."""
     global LAUNCHES
     tensors = (fp, ip, up, gains, codes)
@@ -130,6 +135,8 @@ def render_blocks_cuda(fp, ip, up, gains, codes, *, block_size: int,
         raise ValueError(f"the kernel mixes 1 or 2 channels, got {C}")
     if n_blocks > 65535:
         raise ValueError(f"n_blocks {n_blocks} exceeds the grid's y limit")
+    if not 0 <= block_offset < 2**31 - n_blocks:
+        raise ValueError(f"block_offset {block_offset} out of the kernel's int range")
     fp_c = fp.contiguous()
     ip_c = ip.contiguous()
     up_c = up.contiguous()  # the kernel reads the words' low 32 bits
@@ -144,7 +151,7 @@ def render_blocks_cuda(fp, ip, up, gains, codes, *, block_size: int,
         rc = lib.voicebank_render(
             fp_c.data_ptr(), ip_c.data_ptr(), up_c.data_ptr(), g_c.data_ptr(),
             codes_c.data_ptr(), out.data_ptr(), n_rows, C,
-            n_rows if compact else 0, block_size, n_blocks, stream)
+            n_rows if compact else 0, block_size, n_blocks, block_offset, stream)
     if rc != 0:
         raise RuntimeError(f"voice-bank kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -209,7 +216,7 @@ def _render_block_plain(b: int, fp, ip, up, gains, codes, *, block_size: int,
 
 
 def render_blocks_plain(fp, ip, up, gains, codes, *, block_size: int,
-                        n_blocks: int) -> torch.Tensor:
+                        n_blocks: int, block_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel, block by block (bounded memory:
     one (V, block_size) tile at a time). Any float dtype; any device."""
     kinds = sorted(set(torch.unique(codes).tolist()))
@@ -218,8 +225,8 @@ def render_blocks_plain(fp, ip, up, gains, codes, *, block_size: int,
     for b in range(n_blocks):
         tab = (fp[b], ip[b], up[b], gains[b], codes[b]) if compact else (
             fp, ip, up, gains, codes)
-        outs.append(_render_block_plain(b, *tab, block_size=block_size,
-                                        kinds=kinds))
+        outs.append(_render_block_plain(b + block_offset, *tab,
+                                        block_size=block_size, kinds=kinds))
     if not outs:
         return torch.zeros((0, gains.shape[-1]), dtype=fp.dtype, device=fp.device)
     return torch.cat(outs, dim=0)
@@ -249,7 +256,8 @@ def tile_live_rows(fp, ip, *, b: int, block_size: int, k0: int,
 
 
 def render_blocks_tiled_plain(fp, ip, up, gains, codes, *, block_size: int,
-                              n_blocks: int, tile: int = KERNEL_TILE) -> torch.Tensor:
+                              n_blocks: int, block_offset: int = 0,
+                              tile: int = KERNEL_TILE) -> torch.Tensor:
     """render_blocks_plain as the kernel organises it: each tile of each
     block renders only its `tile_live_rows`, in voice order; a tile with
     none is zeros. Dense or per-block compacted tables."""
@@ -260,15 +268,16 @@ def render_blocks_tiled_plain(fp, ip, up, gains, codes, *, block_size: int,
     for b in range(n_blocks):
         tab = (fp[b], ip[b], up[b], gains[b], codes[b]) if compact else (
             fp, ip, up, gains, codes)
+        bt = b + block_offset
         for k0, k1 in tile_edges(block_size, tile):
-            rows = tile_live_rows(tab[0], tab[1], b=b, block_size=block_size,
+            rows = tile_live_rows(tab[0], tab[1], b=bt, block_size=block_size,
                                   k0=k0, k1=k1)
             if rows.numel() == 0:
                 outs.append(torch.zeros((k1 - k0, C), dtype=fp.dtype,
                                         device=fp.device))
                 continue
             outs.append(_render_block_plain(
-                b, *(t[rows] for t in tab), block_size=block_size, kinds=kinds,
+                bt, *(t[rows] for t in tab), block_size=block_size, kinds=kinds,
                 k0=k0, k1=k1))
     if not outs:
         return torch.zeros((0, C), dtype=fp.dtype, device=fp.device)
@@ -278,19 +287,21 @@ def render_blocks_tiled_plain(fp, ip, up, gains, codes, *, block_size: int,
 SEGMENTS = ("attack", "hold", "decay", "sustain", "release")
 
 
-def segment_voice_samples(fp, ip, *, block_size: int, n_blocks: int) -> dict:
+def segment_voice_samples(fp, ip, *, block_size: int, n_blocks: int,
+                          block_offset: int = 0) -> dict:
     """(row, sample) pairs of a render in each envelope segment: the live
     voice-samples, the work the kernel cannot skip. Counted in closed form
     on the host from the kernel's thresholds (float32 A, A + H, A + H + D,
     R against integer offsets t - press, t - release), block by block over
-    the block's own rows for compacted tables. Skipped rows count nothing."""
+    the block's own rows for compacted tables, the blocks starting at the
+    timeline's block `block_offset`. Skipped rows count nothing."""
     fp = fp.detach().cpu().numpy().astype(np.float32)
     ip = ip.detach().cpu().numpy().astype(np.int64)
     counts = dict.fromkeys(SEGMENTS, 0)
     for b in range(n_blocks):
         f = fp[b] if fp.ndim == 3 else fp
         i = ip[b] if ip.ndim == 3 else ip
-        lo, hi = b * block_size, (b + 1) * block_size
+        lo, hi = (b + block_offset) * block_size, (b + block_offset + 1) * block_size
         keep = ~(f[:, 7] > 0.5)
         p, rl = i[keep, 0], i[keep, 1]
         A, H, D, R = (f[keep, j] for j in (1, 2, 3, 4))
@@ -322,12 +333,12 @@ _TABLE_ROW_BYTES = 8 * 4 + 2 * 4 + 2 * 8 + 3 * 4  # fp, ip, up (int64), codes
 
 
 def kernel_bound(fp, ip, *, block_size: int, n_blocks: int,
-                 n_channels: int) -> dict:
+                 n_channels: int, block_offset: int = 0) -> dict:
     """The least time the card could take for this render: the larger of
     the live voice-samples' FP32 operations over FP32_PEAK and the bytes
     (tables read once, output written once) over HBM_PEAK."""
     counts = segment_voice_samples(fp, ip, block_size=block_size,
-                                   n_blocks=n_blocks)
+                                   n_blocks=n_blocks, block_offset=block_offset)
     flops = sum(n * (11 + 2 * n_channels + _SEGMENT_FLOPS[s])
                 for s, n in counts.items())
     rows = int(np.prod(fp.shape[:-1]))
@@ -340,14 +351,14 @@ def kernel_bound(fp, ip, *, block_size: int, n_blocks: int,
 
 
 def render_blocks(fp, ip, up, gains, codes, *, block_size: int,
-                  n_blocks: int) -> torch.Tensor:
+                  n_blocks: int, block_offset: int = 0) -> torch.Tensor:
     """Dispatch on the device of the tables: CPU -> render_blocks_plain,
     CUDA -> render_blocks_cuda (which raises on what it does not take)."""
     kind = fp.device.type
     if kind == "cpu":
-        return render_blocks_plain(fp, ip, up, gains, codes,
-                                   block_size=block_size, n_blocks=n_blocks)
+        return render_blocks_plain(fp, ip, up, gains, codes, block_size=block_size,
+                                   n_blocks=n_blocks, block_offset=block_offset)
     if kind == "cuda":
-        return render_blocks_cuda(fp, ip, up, gains, codes,
-                                  block_size=block_size, n_blocks=n_blocks)
+        return render_blocks_cuda(fp, ip, up, gains, codes, block_size=block_size,
+                                  n_blocks=n_blocks, block_offset=block_offset)
     raise ValueError(f"no voice-bank renderer for device {fp.device}")

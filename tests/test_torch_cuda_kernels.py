@@ -134,6 +134,36 @@ def test_kernel_on_tile_edges(cuda_card, block_size, n_channels):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edges", "eased"])
+def test_kernel_block_offset(cuda_card, case):
+    """block_offset shifts the rendered blocks along the timeline: the
+    kernel against its plain version, and against the same blocks of a
+    render from block 0 (the same launch geometry per block: equal to the
+    bit); dense and compacted tables (a compacted table stays indexed by the
+    output block). The tile-edge tables from block 1 on, an eased bank's
+    from block 2 on."""
+    if case == "edges":
+        args, st, _ = edge_tables(4096, 2, device=cuda_card)
+        offset = 1
+    else:
+        args, st = tvb.prepare_bank_arrays(_bank(8, eased=True, seed=3), 16384, 4096,
+                                           device=cuda_card)
+        offset = 2
+    B, nb = st["block_size"], st["n_blocks"] - offset
+    full = cv.render_blocks_cuda(*args, **st)
+    k_out = cv.render_blocks_cuda(*args, block_size=B, n_blocks=nb, block_offset=offset)
+    p_out = cv.render_blocks_plain(*args, block_size=B, n_blocks=nb, block_offset=offset)
+    cargs, _cst = tvb.compact_block_args(args, st)
+    c_out = cv.render_blocks_cuda(*(a[offset:] for a in cargs), block_size=B,
+                                  n_blocks=nb, block_offset=offset)
+    torch.cuda.synchronize()
+    assert float(p_out.abs().max()) > 0.05
+    assert float((k_out - p_out).abs().max()) <= ATOL
+    assert torch.equal(k_out, full[offset * B:])
+    assert float((c_out - p_out).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
 def test_kernel_on_a_live_pull(cuda_card):
     """The live path's shape: one 512-sample block (one CTA, a ragged tile)
     at t0 = 59 s, where StreamingSynth has shifted press and release by -t0:
