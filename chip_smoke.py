@@ -79,7 +79,9 @@ Phases (any failure exits non-zero and prints no result):
      analysis and vocoder settings, every leg of the mix on, post "limit"):
      J1 offline_job.run_job at 60 s (first run, median of 3 warm walls,
      stages each synchronised; output finite within the limiter's ceiling,
-     the WAV read back equal to the returned array, the mix equal to one
+     the WAV read back equal to the returned array, the 4 runs equal to the
+     bit, resynthesize of the gained voice twice equal to the bit in
+     torch's default mode, the mix equal to one
      rebuilt from resynthesize and vocode of the gained voice); J2 the same
      job with feedback drones (gain 0.3, delay 1 s: wall, passes), run on
      the headline workload at 12 s (12 passes, each in the device
@@ -159,7 +161,19 @@ Phases (any failure exits non-zero and prints no result):
      one communicator on one card, so (b) runs on gloo), then
      make_sharded_chain at world 2, render_jobs_farm (2 groups of 1) and
      render_jobs_pipelined (1 + 1) on the 2 s chain test workload against
-     the single-device chain on cuda, at (a)'s bars.
+     the single-device chain on cuda, at (a)'s bars; last, each of the two
+     ranks builds the device tracker's table from the same headline peaks
+     (rank 0's, broadcast), and the gathered tables and dropped counts must
+     be equal to the bit (C3: the replicated trackers of the sharded chains
+     agree).
+ 15. reproducibility, in torch's default (non-deterministic) mode: 5 runs
+     each of run_offline_chain_device at the headline width (float32 and
+     the df chain), resynthesize of J1's gained voice, J1 end to end and
+     make_sharded_chain at world 1 (one NCCL rank), every output, the
+     device tracker's tables (recorded around build_tables_device) and the
+     dropped counts held against the first run's to the bit; one line per
+     path with max|diff|, the tables' and dropped's equality and the kernel
+     launches (`launches_repro`: the float32 chain's 5 runs).
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -168,6 +182,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -737,6 +752,42 @@ def phase_scan_fallback():
           f"{_dispatched_ops(lambda: build(True))}")
     if not (d_scan == d_par == 0 and peak > 1e-3 and rel < 2e-3):
         raise RuntimeError("the scan fallback disagrees with the frame-parallel tracker")
+    _frame_local_memory(inputs, kw)
+
+
+def _frame_local_memory(inputs, kw, batch: int = 8):
+    """Diagnostic: the peak device memory of the tracker's frame-local
+    stage (device_tracker._prep_lanes, where the one-hot group sums build
+    their (rows, lanes, groups) masks) on the headline peaks: as the
+    headline runs it, with harmonize pre and post in the "merged"
+    semantics (each stage doubles the lanes and adds a group sum over
+    them; the headline's "reference" semantics adds none), and on a batch
+    of `batch` copies of the peaks (the batch builder's rows are batch x
+    frames)."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+
+    freq, mag, loud_p, loud_s, _pan, _phase, at = tdt._inputs(
+        *inputs, kw["autotune_arrays"], inputs[0].device)
+    cases = (("headline", freq, mag, kw),
+             ("harmonize pre 7 + post 12, merged", freq, mag,
+              {**kw, "harmonize_pre": 7.0, "harmonize_post": 12.0,
+               "harmonize_semantics": "merged"}),
+             (f"batch of {batch}", freq.expand(batch, -1, -1).contiguous(),
+              mag.expand(batch, -1, -1).contiguous(), kw))
+    parts = []
+    for name, f, m, case_kw in cases:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lanes = tdt._prep_lanes(f, m, loud_p, loud_s, at, case_kw)[-1]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        parts.append(f"{name} ({tuple(f.shape)} peaks, {lanes} lanes out) "
+                     f"{peak / 2**20:.1f} MiB")
+    print("[tracker memory] frame-local stage, peak device memory above its "
+          "inputs: " + "; ".join(parts))
 
 
 def autotune_test_signal(sr):
@@ -805,12 +856,13 @@ def phase_device_reference():
 
     sig = autotune_test_signal(SR)
     acfg = dataclasses.replace(rcfg, use_autotune=True, seed=5, analysis_volume=1.0)
-    g = resynth.resynthesize(sig, acfg, implementation="device", device="cuda")
+    g = resynth.resynthesize(sig, acfg, implementation="device", device_out=True,
+                             device="cuda")
     for other, o in (
             ("cpu device path", resynth.resynthesize(
-                sig, acfg, implementation="device", device="cpu")),
+                sig, acfg, implementation="device", device_out=True, device="cpu")),
             ("cuda python tracker", resynth.resynthesize(
-                sig, acfg, implementation="python", device="cuda"))):
+                sig, acfg, implementation="python", device_out=True, device="cuda"))):
         n_o = min(g.shape[0], o.shape[0])
         _hold_resynth("autotune scale_major, 2 s signal", other, g[:n_o], o[:n_o])
 
@@ -901,11 +953,11 @@ def phase_df_fidelity():
     same = {
         "native": resynth_bank.render_table(
             resynth.build_tables_native(freq, mag, cfg64, n_frames + 8, rcfg64),
-            rcfg64, device="cpu").numpy(),
+            rcfg64, device="cpu"),
         "python": resynth_bank.render_tracked(
             resynth.track(stft.top_peaks_to_lists(freq, mag), cfg64,
                           prefer_native=False)[0],
-            n_frames, rcfg64, device="cpu").numpy()}
+            n_frames, rcfg64, device="cpu")}
     args64 = (bank, fn, cfg64, vparams, carrier)
     e2e = chain.run_offline_chain(*args64, block_size=cfg.block_size, device="cpu")
     table_host = chain.host_chain_table(*args64, block_size=cfg.block_size,
@@ -1526,12 +1578,16 @@ def phase_jobs_and_apps(card: str) -> dict:
     spread = max(float(np.abs(o - out).max()) for o in outs)
     print(f"[J1] run to run, 4 runs of the job on the card: max|diff| {spread:.3e} "
           f"({spread / peak:.3e} of peak); {_deterministic_spread(oj, preset, voice)}")
+    if spread != 0.0:
+        raise RuntimeError(f"J1: the job differs between runs: max|diff| {spread}")
     # the mix rebuilt from its legs' own calls on the same inputs
     f64 = dict(dtype=torch.float64, device="cuda")
     gained = preset.analysis_input_gain * torch.as_tensor(voice, **f64)
-    r = rs.resynthesize(gained, oj.resynth_config_from_preset(preset, SR), device="cuda")
+    r = rs.resynthesize(gained, oj.resynth_config_from_preset(preset, SR),
+                        device_out=True, device="cuda")
     v = voc.vocode(gained, torch.as_tensor(carrier, **f64),
-                   oj.vocoder_params_from_preset(preset, SR), device="cuda")
+                   oj.vocoder_params_from_preset(preset, SR), device_out=True,
+                   device="cuda")
     mix = torch.zeros((n, 2), **f64)
     mix[:v.shape[0]] += preset.vocoder_volume * v[:n, None]
     mix += preset.voice_volume * torch.as_tensor(voice, **f64)[:, None]
@@ -1588,23 +1644,22 @@ def phase_jobs_and_apps(card: str) -> dict:
 
 
 def _deterministic_spread(oj, preset, voice) -> str:
-    """Diagnostic: resynthesize of the job's gained voice twice with
-    torch.use_deterministic_algorithms(True) (deterministic scatter-adds in
-    the device tracker, among others): max|diff| between the two."""
+    """resynthesize of the job's gained voice twice in torch's default
+    (non-deterministic) mode; fails unless the two are equal to the bit."""
     import torch
 
     from cpp_audio_tpu_torch.analysis import resynth as rs
 
+    if torch.are_deterministic_algorithms_enabled():
+        raise RuntimeError("torch's deterministic mode is on: the check needs the default")
     cfg = oj.resynth_config_from_preset(preset, SR)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        a, b = (rs.resynthesize(preset.analysis_input_gain * voice, cfg, device="cuda")
-                for _ in range(2))
-        torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    return (f"resynthesize twice in torch's deterministic mode: max|diff| "
-            f"{float((a - b).abs().max()):.3e}")
+    a, b = (rs.resynthesize(preset.analysis_input_gain * voice, cfg, device_out=True,
+                            device="cuda") for _ in range(2))
+    torch.cuda.synchronize()
+    diff = float((a - b).abs().max())
+    if diff != 0.0:
+        raise RuntimeError(f"resynthesize differs between two runs: max|diff| {diff}")
+    return f"resynthesize twice in torch's default mode: max|diff| {diff:.3e}"
 
 
 def phase_checkpointed_job(card, cfg, preset, n) -> int:
@@ -1809,7 +1864,7 @@ def phase_filter_bank(card, voice, carrier):
     car = torch.as_tensor(carrier, dtype=torch.float32, device="cuda")
 
     def run():
-        out = voc.vocode_filter_bank(mod, car, p, device="cuda")
+        out = voc.vocode_filter_bank(mod, car, p, device_out=True, device="cuda")
         torch.cuda.synchronize()
         return out
 
@@ -1823,11 +1878,11 @@ def phase_filter_bank(card, voice, carrier):
         walls.append(time.perf_counter() - t0)
     ops = _dispatched_ops(run)
     t0 = time.perf_counter()
-    c = voc.vocode_filter_bank(voice, carrier, p, device="cpu")
+    c = voc.vocode_filter_bank(voice, carrier, p, device_out=True, device="cpu")
     t_cpu = time.perf_counter() - t0
     diff = float((g.cpu() - c).abs().max())
     silent = float(voc.vocode_filter_bank(torch.zeros_like(mod), car, p,
-                                          device="cuda").abs().max())
+                                          device_out=True, device="cuda").abs().max())
     wall = statistics.median(walls)
     print(f"[filter bank] vocode_filter_bank, {SECONDS:.0f} s, {p.count_bands} bands: first "
           f"{first:.3f} s, warm median {wall * 1e3:.3f} ms of 3 "
@@ -2441,10 +2496,12 @@ def phase_procedural(card: str) -> dict:
                     for s in PROC_SEEDS)
         _batch_report(f"(c) SoundEngine {prog.name!r} (up to {specs} specs a job)",
                       lambda seeds, prog=prog: soundengine.render_program_batch(
-                          prog, 440.0, n, SR, seeds=seeds, device="cuda"), card, n)
+                          prog, 440.0, n, SR, seeds=seeds, device_out=True,
+                          device="cuda"), card, n)
     # (d): the WIND batch
     _batch_report(f"(d) WIND {rain.name!r}",
                   lambda seeds: wind.render_program_batch(rain, n, SR, seeds=seeds,
+                                                          device_out=True,
                                                           device="cuda"), card, n)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2873,6 +2930,186 @@ def phase_mesh(card: str) -> dict:
                    cpu_refs[j])
         _hold_mesh(f"(b) render_jobs_pipelined (1 + 1), job {j}", tensors(piped[j]),
                    cpu_refs[j])
+    t0 = time.perf_counter()
+    same = launch.spawn(2, rank_tracker_table, backend="gloo", device="cuda", timeout=300,
+                        store_dir=MESH_DIR)
+    print(f"[mesh] (b) C3 on one card: {same['world']} gloo ranks each track the headline "
+          f"peaks ({same['shape']} tables) in {time.perf_counter() - t0:.1f} s: tables "
+          f"gathered and equal to the bit {same['tables_equal']}, dropped {same['dropped']} "
+          f"equal {same['dropped_equal']} (the ranks' own peaks equal to the bit: "
+          f"{same['own_peaks_equal']})")
+    if not (same["tables_equal"] and same["dropped_equal"]):
+        raise RuntimeError("(14b): two ranks built different tracker tables from one set of peaks")
+    return out
+
+
+REPRO_RUNS = 5                # phase 15: runs of each path, held to the bit
+
+
+def _bits_equal(a, b) -> bool:
+    """a and b equal to the bit (NaN pads included): same shape and dtype,
+    and the same bytes."""
+    import torch
+
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(ints), b.contiguous().view(ints)
+    return torch.equal(a, b)
+
+
+def rank_tracker_table() -> dict:
+    """One gloo rank of phase 14 (b)'s C3 check: the headline peaks (rank
+    0's, broadcast, as the sharded chains' ranks all track one gathered set
+    of peaks), the device tracker's table and dropped count on this rank,
+    and every rank's gathered. Returns on rank 0 whether the ranks' tables,
+    dropped counts and own peaks are equal to the bit."""
+    import torch
+    import torch.distributed as dist
+
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+    from cpp_audio_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = int(SR * SECONDS)
+    sch, cfg = make_synth_workload(SR, n)
+    inputs, kw, _render = headline_tracker_inputs(n, sch, cfg, dev)
+    own = torch.stack(inputs[:2])
+    peaks = own.clone()
+    dist.broadcast(peaks, src=0)
+    table, dropped = tdt.build_tables_device(peaks[0], peaks[1], *inputs[2:], device=dev,
+                                             **kw)
+    world = dist.get_world_size()
+    tables = mesh._all_gather(table[None], None)
+    drops = mesh._all_gather(dropped.reshape(1), None)
+    owns = mesh._all_gather(own[None], None)
+    torch.cuda.synchronize()
+    return {"world": world, "shape": tuple(table.shape), "dropped": drops.tolist(),
+            "tables_equal": all(_bits_equal(tables[0], tables[r]) for r in range(world)),
+            "dropped_equal": len(set(drops.tolist())) == 1,
+            "own_peaks_equal": all(_bits_equal(owns[0], owns[r]) for r in range(world))}
+
+
+@contextlib.contextmanager
+def _recorded_tables():
+    """Context: every device_tracker.build_tables_device call (the chains',
+    the fidelity tracker's through build_tables_device_df, resynthesize's,
+    the mesh's) appends its (table, dropped) to the yielded list."""
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+
+    plain, calls = tdt.build_tables_device, []
+
+    def build(*a, **k):
+        out = plain(*a, **k)
+        calls.append(out)
+        return out
+
+    tdt.build_tables_device = build
+    try:
+        yield calls
+    finally:
+        tdt.build_tables_device = plain
+
+
+def _repeat(tag, run, needs_kernel: bool) -> int:
+    """run() (outputs: tensors or arrays) REPRO_RUNS times; every output,
+    the tracker's tables and dropped counts against the first run's, to the
+    bit. Prints one line; fails on any difference, or when the tracker (or,
+    with needs_kernel, the voice-bank kernel) did not run. Returns the
+    kernel launches of the runs."""
+    import torch
+
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+
+    runs = []
+    cv.LAUNCHES = 0
+    for _ in range(REPRO_RUNS):
+        with _recorded_tables() as calls:
+            outs = [torch.as_tensor(o) for o in run()]
+            torch.cuda.synchronize()
+        runs.append((outs, [t for t, _ in calls], [int(d) for _, d in calls]))
+    launches = cv.LAUNCHES
+    outs0, tables0, dropped0 = runs[0]
+    diff = max(float((a.to(b.device) - b).abs().max()) if a.numel() else 0.0
+               for outs, _t, _d in runs[1:] for a, b in zip(outs, outs0))
+    tables_equal = all(len(t) == len(tables0) and all(map(_bits_equal, t, tables0))
+                       for _o, t, _d in runs[1:])
+    dropped_equal = all(d == dropped0 for _o, _t, d in runs[1:])
+    print(f"[repro] {tag}: {REPRO_RUNS} runs, outputs "
+          f"{', '.join(str(tuple(o.shape)) for o in outs0)}: max|diff| against the first "
+          f"{diff:.3e}; tracker tables {len(tables0)} x {tuple(tables0[0].shape) if tables0 else ()} "
+          f"equal to the bit {tables_equal}; dropped {dropped0} equal {dropped_equal}; "
+          f"kernel launches {launches}")
+    if not tables0 or (needs_kernel and launches <= 0):
+        raise RuntimeError(f"(15) {tag}: the tracker or the kernel did not run")
+    if not (diff == 0.0 and tables_equal and dropped_equal):
+        raise RuntimeError(f"(15) {tag} differs between runs")
+    return launches
+
+
+def phase_repro(card: str) -> dict:
+    """Phase 15: the paths whose float sums used to depend on the order of
+    the card's atomics, each run REPRO_RUNS times in torch's default
+    (non-deterministic) mode and held to the bit. Returns the kernels-line
+    key it measures (launches_repro: the float32 device chain's runs)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from cpp_audio_tpu_torch.analysis import chain
+    from cpp_audio_tpu_torch.analysis import offline_job as oj
+    from cpp_audio_tpu_torch.analysis import resynth as rs
+    from cpp_audio_tpu_torch.parallel import mesh
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise RuntimeError("(15): torch's deterministic mode is on")
+    print(f"[repro] torch's deterministic mode off "
+          f"(use_deterministic_algorithms: {torch.are_deterministic_algorithms_enabled()}) "
+          f"on {card}")
+    n = int(SR * SECONDS)
+    sch, cfg = make_synth_workload(SR, n)
+    out = {}
+    for dtype in ("float32", "df32"):
+        bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg, dtype)
+
+        def device_chain(bank=bank, rcfg=rcfg, vparams=vparams, carrier=carrier):
+            r = chain.run_offline_chain_device(bank, n, rcfg, vparams, carrier,
+                                               block_size=cfg.block_size, device="cuda")
+            return r.resynth, r.vocoded, r.dropped
+
+        launches = _repeat(f"run_offline_chain_device ({dtype}), {SECONDS:.0f} s",
+                           device_chain, needs_kernel=True)
+        if dtype == "float32":
+            out["launches_repro"] = launches
+
+    preset = _job_preset()
+    job = write_job("j1", n, preset)
+    _, voice, _carrier, _ = oj.load_job_inputs(job)
+    rcfg_job = oj.resynth_config_from_preset(preset, SR)
+    _repeat(f"resynthesize of the job's gained voice, {SECONDS:.0f} s",
+            lambda: (rs.resynthesize(preset.analysis_input_gain * voice, rcfg_job,
+                                     device_out=True, device="cuda"),),
+            needs_kernel=False)
+    _repeat(f"J1 offline_job.run_job, {SECONDS:.0f} s",
+            lambda: (oj.run_job(job, device="cuda"),), needs_kernel=False)
+
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
+    os.makedirs(MESH_DIR, exist_ok=True)
+    store = os.path.abspath(os.path.join(MESH_DIR, "repro_store"))
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        step = mesh.make_sharded_chain(mesh.default_mesh(device="cuda"), n, rcfg, vparams,
+                                       block_size=cfg.block_size, device="cuda")(bank, carrier)
+        _repeat(f"make_sharded_chain at world 1 (NCCL), {SECONDS:.0f} s", step,
+                needs_kernel=True)
+    finally:
+        dist.destroy_process_group()
     return out
 
 
@@ -2905,6 +3142,7 @@ def main() -> int:
         measured.update(phase_tune(card))
         measured.update(phase_procedural(card))
         measured.update(phase_mesh(card))
+        measured.update(phase_repro(card))
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

@@ -18,3 +18,5 @@ the JAX package's precision=HIGHEST rule.
 """
 
 from . import device  # noqa: F401  (sets the float32 matmul precision)
+
+__version__ = "0.1.0"

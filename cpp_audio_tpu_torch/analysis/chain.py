@@ -95,20 +95,22 @@ def _synth_dtype(rconfig) -> str:
 def _stage_analyze_vocode(bank: voicebank.VoiceBank, n_samples: int,
                           rconfig: resynth_mod.ResynthConfig,
                           vparams: vocoder_mod.VocoderParams, carrier,
-                          block_size: int, dev):
+                          block_size: int, dev, mod_mode=None):
     """The synth, analysis and vocoder legs' tensors on `dev` and their
     static keywords: (bank_args, av_args, av_kw) for
     `_fused_analyze_vocode(*bank_args, *av_args, **av_kw)`, or for
-    `_fused_analyze_vocode_df` when rconfig.dtype is "df32"."""
+    `_fused_analyze_vocode_df` when rconfig.dtype is "df32". mod_mode: the
+    vocoder's modulator path (vocoder._modulator_band_amps_fast's mode)."""
     bank_args, statics = voicebank.prepare_bank_arrays(
         bank, n_samples, block_size, _synth_dtype(rconfig), device=dev)
     av_args, av_kw = _analyze_vocode_inputs(n_samples, rconfig, vparams,
-                                            carrier, dev)
+                                            carrier, dev, mod_mode)
     return bank_args, av_args, dict(av_kw, **statics)
 
 
 def _analyze_vocode_inputs(n_samples: int, rconfig: resynth_mod.ResynthConfig,
-                           vparams: vocoder_mod.VocoderParams, carrier, dev):
+                           vparams: vocoder_mod.VocoderParams, carrier, dev,
+                           mod_mode=None):
     """The analysis and vocoder legs' tensors on `dev` and their static
     keywords. The tensors are (window, carrier, band matrix, modulator
     rows); the fidelity chain's are (window, unit-sine scale, carrier, band
@@ -145,7 +147,7 @@ def _analyze_vocode_inputs(n_samples: int, rconfig: resynth_mod.ResynthConfig,
                  vol_mod=float(vparams.volume_modulator),
                  vol_car=float(vparams.volume_carrier),
                  vol_voc=float(vparams.volume_vocoded),
-                 edges=tuple(float(e) for e in edges),
+                 edges=tuple(float(e) for e in edges), mod_mode=mod_mode,
                  mod_shape=vparams.modulator_window_shape)
     return (*analysis, car, bm_car, rows), av_kw
 
@@ -163,11 +165,14 @@ def _synth_mono(fp, ip, up, gains, codes, *, n: int, block_size: int,
 def _vocode_mix(mono, carrier, bm_car, rows, *, sample_rate: int,
                 mod_window: int, voc_stride: int, car_fft: int,
                 n_mod_frames: int, vol_mod: float, vol_car: float,
-                vol_voc: float, edges: tuple, mod_shape: str = "gaussian"):
-    """The vocoder of the mixdown against the carrier, mixed with both."""
+                vol_voc: float, edges: tuple, mod_mode=None,
+                mod_shape: str = "gaussian"):
+    """The vocoder of the mixdown against the carrier, mixed with both;
+    mod_mode selects the modulator path (None: "decimated")."""
     amps = vocoder_mod._modulator_band_amps_fast(
         mono, edges, window=mod_window, stride=voc_stride,
-        n_frames=n_mod_frames, sample_rate=sample_rate, shape=mod_shape)
+        n_frames=n_mod_frames, sample_rate=sample_rate, mode=mod_mode,
+        shape=mod_shape)
     vocoded = vocoder_mod._carrier_vocode(carrier, amps[rows], bm_car,
                                           stride=voc_stride, fft_len=car_fft)
     out_len = vocoded.shape[0]
@@ -293,7 +298,7 @@ def run_offline_chain(bank: voicebank.VoiceBank, n_samples: int,
         bank, n_samples, rconfig, vparams, carrier, block_size, dev, stage)
     stage("tracker")
     stereo = resynth_bank.render_table(table, resynth_mod._render_config(rconfig),
-                                       device=dev)
+                                       device_out=True, device=dev)
     stage("render")
     return OfflineChainResult(resynth=stereo, vocoded=mix, n_frames=n_frames,
                               tracker=tracker)
@@ -463,7 +468,8 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
                                  rconfig: resynth_mod.ResynthConfig,
                                  vparams: vocoder_mod.VocoderParams, carrier,
                                  *, block_size: int = 1 << 15, draws=None,
-                                 emit: str = "render", device="cuda"):
+                                 mod_mode=None, emit: str = "render",
+                                 device="cuda"):
     """Stage the device-resident arguments of the single-dispatch chain on
     `device` and return (step, n_frames): `step(stage=None)` runs synth ->
     STFT -> peaks -> device tracker -> render + vocoder over them and
@@ -475,7 +481,9 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
     the analysis mode DF_ANALYSIS_MODE); its emit="table" returns the slot
     table in place of the render (JAX chain.py:436-439).
     draws: optional (pan_draws, phase_draws) pools; defaults to the numpy
-    pools matching the host tracker's RNG sequence.
+    pools matching the host tracker's RNG sequence. mod_mode: the vocoder's
+    modulator path, "decimated" (None, the default) or "full" (JAX
+    chain.py:457).
     """
     dev = torch.device(device)
     df = rconfig.dtype == "df32"
@@ -483,7 +491,7 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
         raise ValueError(f"emit={emit!r}: 'table' is the fidelity chain's "
                          "(dtype 'df32')")
     bank_args, av_args, av_kw = _stage_analyze_vocode(
-        bank, n_samples, rconfig, vparams, carrier, block_size, dev)
+        bank, n_samples, rconfig, vparams, carrier, block_size, dev, mod_mode)
     n_frames = _n_frames(n_samples, rconfig)
     tracker_args, tr_kw = _tracker_inputs(
         rconfig, resynth_mod._render_config(rconfig), n_frames, draws,

@@ -25,8 +25,10 @@ Port of cpp_audio_tpu/analysis/device_tracker.py: the float32 serving path
 (:1-1201), and the fidelity chain's tracker (the df32 tracker, :1204-2126)
 as this same code at float64 (`build_tables_device_df`). What the TPU shaped
 and the port does not keep: every one-hot contraction that stood in for a
-gather or a scatter is a gather, a scatter or a scatter-reduce (exact: each
-target is unique or the sum is a real group sum); the boolean matrix
+gather or a scatter is a gather, a scatter or a min/max scatter-reduce
+(exact: each target is unique, or the reduction is order-free); the float
+group sums stay one-hot contractions (`_group_sum`), so the card adds them
+in a fixed order and gives the same table on every run; the boolean matrix
 squaring of the jump graph is pointer doubling of the jump map; `lax.cond`
 on the violation flag reads that one flag on the host (counted in
 HOST_SYNCS) and runs one branch; `lax.scan` over frames is a Python loop.
@@ -91,6 +93,24 @@ def _sort_by(key, *carried):
     return tuple(torch.gather(a, -1, order) for a in (key,) + carried)
 
 
+def _group_sum(gid, vals, n_groups: int):
+    """out[f, g] = the sum of vals[f, j] over the lanes j with gid[f, j] ==
+    g, for (F, k) gid and vals; a lane whose gid lies outside [0, n_groups)
+    adds nothing. The JAX package's one-hot contraction: a reduction over
+    the lane axis of the (F, k, n_groups) masked values, whose association
+    the shapes fix, so the card gives the same sums on every run (a float
+    scatter_add adds in the order its atomics land). Groups are contiguous
+    runs of lanes, so a segmented sum would do too, but only through a
+    cumsum and a difference, which rounds each group by the running total
+    before it. The price is memory: a bool mask and a values tensor of
+    (F, k, n_groups) each, O(F k^2) with n_groups = k. F counts every row:
+    build_tables_device_batch passes batch x frames rows, and each harmonize
+    stage doubles the k of the sums after it (chip_smoke.py's
+    `[tracker memory]` line measures the stage's peak)."""
+    member = gid[..., None] == torch.arange(n_groups, device=gid.device)
+    return torch.where(member, vals[..., None], vals.new_zeros(())).sum(dim=1)
+
+
 def _set_drop(arr, idx, vals):
     """arr.at[idx].set(vals, mode="drop") for a 1-D arr whose only
     out-of-range index is len(arr): write through a spare row."""
@@ -129,8 +149,7 @@ def _harmonize_lanes(tpitch, tvol, h: float):
     # first (lowest-j) original attaining the min — reference std::min_element
     lane = torch.arange(k, device=tpitch.device)
     first_j = torch.where(dist <= mind[..., None], lane, k).min(dim=-1).values
-    vol_add = tvol.new_zeros((F, k + 1)).scatter_add_(
-        1, torch.where(merge, first_j, k), torch.where(merge, tvol, 0.0))[:, :k]
+    vol_add = _group_sum(torch.where(merge, first_j, k), tvol, k)
     keep = valid & ~merge
     cat_p = torch.cat([tpitch, torch.where(keep, hp, torch.inf)], dim=-1)
     cat_v = torch.cat([tvol + vol_add, torch.where(keep, tvol, 0.0)], dim=-1)
@@ -240,7 +259,7 @@ def _autotune_lanes(tpitch, tvol, at_root, at_scale, at_equid, at_allowed, *,
                      dim=-1)
     boundary = ~fin | (sp - prev >= _PITCH_EPSILON)
     gid = torch.cumsum(boundary.to(torch.int64), dim=-1) - 1
-    gvol = torch.zeros_like(sv).scatter_add_(1, gid, torch.where(fin, sv, 0.0))
+    gvol = _group_sum(gid, torch.where(fin, sv, 0.0), sv.shape[-1])
     gp = torch.full_like(sp, torch.inf).scatter_reduce_(
         1, gid, torch.where(fin, sp, torch.inf), "amin")
     return gp, torch.where(torch.isfinite(gp), gvol, 0.0)
@@ -293,10 +312,11 @@ def _frame_local(freq, mag_db, loud_pitches, loud_spl, at_root, at_scale,
     vol = torch.where(valid, torch.pow(10.0, mag_db / 20.0), 0.0)
 
     gid = _group_ids(pitch, valid, d)
+    k = pitch.shape[-1]
+    sum_vol = _group_sum(gid, vol, k)
+    sum_pv = _group_sum(gid, torch.where(valid, pitch, 0.0) * vol, k)
+    count = _group_sum(gid, valid.to(torch.int64), k)  # integer: exact
     zero = torch.zeros_like(pitch)
-    sum_vol = zero.scatter_add(1, gid, vol)
-    sum_pv = zero.scatter_add(1, gid, torch.where(valid, pitch, 0.0) * vol)
-    count = zero.scatter_add(1, gid, valid.to(pitch.dtype))
     max_vol = zero.scatter_reduce(1, gid, vol, "amax")
     p_in = torch.where(valid, pitch, torch.inf)
     min_p = torch.full_like(pitch, torch.inf).scatter_reduce(1, gid, p_in, "amin")

@@ -111,7 +111,7 @@ def run_offline(preset: ResynthPreset, voice: np.ndarray | None,
     # 1263-1273)
     if preset.vocoder_volume != 0.0 and len(carrier):
         vp = vocoder_params_from_preset(preset, sample_rate)
-        v = voc.vocode(gained_voice, carrier, vp, device=dev)
+        v = voc.vocode(gained_voice, carrier, vp, device_out=True, device=dev)
         m = min(v.shape[0], n)
         out[:m] += preset.vocoder_volume * v[:m, None]
 
@@ -135,7 +135,7 @@ def run_offline(preset: ResynthPreset, voice: np.ndarray | None,
                 delay_seconds=preset.output_delay_seconds,
                 post_limit=(post == "limit"), extra_mix=out, device=dev)
         else:
-            r = rs.resynthesize(gained_voice, cfg, device=dev)
+            r = rs.resynthesize(gained_voice, cfg, device_out=True, device=dev)
         m = min(r.shape[0], n)
         out[:m] += r[:m]
     stage("resynthesize")

@@ -470,11 +470,12 @@ def build_tables_native(freq, mag_db, config: ResynthConfig, total_frames: int,
     return table
 
 
-def resynthesize(signal, config: ResynthConfig, *,
+def resynthesize(signal, config: ResynthConfig, *, device_out: bool = False,
                  prefer_native: bool = True,
                  implementation: str = "auto",
-                 device="cuda") -> torch.Tensor:
-    """Full offline chain: mono signal -> stereo resynthesis (T, 2) tensor.
+                 device="cuda"):
+    """Full offline chain: mono signal -> stereo resynthesis (T, 2): one
+    host copy (numpy), or with device_out=True the tensor on `device`.
 
     implementation: "auto" takes the device-resident chain
     (chain.resynthesize_signal_device: frame-parallel tracker, incl.
@@ -505,7 +506,8 @@ def resynthesize(signal, config: ResynthConfig, *,
     if implementation in ("device", "auto"):
         from . import chain
 
-        return chain.resynthesize_signal_device(signal, config, device=device)
+        out = chain.resynthesize_signal_device(signal, config, device=device)
+        return out if device_out else out.cpu().numpy()
     rcfg = _render_config(config)
     if implementation == "native":
         from .. import native as nat
@@ -516,12 +518,14 @@ def resynthesize(signal, config: ResynthConfig, *,
             n_frames = int(freq.shape[0])
             table = build_tables_native(freq.cpu().numpy(), mag.cpu().numpy(),
                                         config, n_frames + 8, rcfg)
-            return resynth_bank.render_table(table, rcfg, device=device)
+            return resynth_bank.render_table(table, rcfg, device_out,
+                                             device=device)
     peaks = analyze(signal, config, device=device)
     notes, _stats, _dropped = track(
         peaks, config,
         prefer_native=prefer_native and implementation != "python")
-    return resynth_bank.render_tracked(notes, len(peaks), rcfg, device=device)
+    return resynth_bank.render_tracked(notes, len(peaks), rcfg,
+                                       device_out=device_out, device=device)
 
 
 def resynthesize_feedback(signal, config: ResynthConfig, *,
@@ -572,7 +576,7 @@ def resynthesize_feedback(signal, config: ResynthConfig, *,
     n = sig.shape[0]
     D = max(config.stride, int(0.5 + delay_seconds * config.sample_rate))
     if feedback_gain == 0.0:
-        return resynthesize(sig, config, device=dev)
+        return resynthesize(sig, config, device_out=True, device=dev)
     Deff = D + 1
     out_mono = sig.new_zeros(n)  # delayed-feedback source (L+R sum, out.h:1268)
     summed = sig.clone()
@@ -592,7 +596,8 @@ def resynthesize_feedback(signal, config: ResynthConfig, *,
         if not post_limit:
             blk = torch.clamp(blk, -max_level, max_level)
         summed[start:end] = blk
-        result = resynthesize(summed[:end], config, device=dev).to(torch.float64)
+        result = resynthesize(summed[:end], config, device_out=True,
+                              device=dev).to(torch.float64)
         if extra is not None:
             m2 = min(result.shape[0], n)
             result[:m2] += extra[:m2]
@@ -600,7 +605,7 @@ def resynthesize_feedback(signal, config: ResynthConfig, *,
             result, _p = lim.limit_streaming(result, sample_rate=config.sample_rate)
         m = result.sum(dim=1)
         out_mono[:min(m.shape[0], n)] = m[:n]
-    return resynthesize(summed, config, device=dev)
+    return resynthesize(summed, config, device_out=True, device=dev)
 
 
 def resynth_wav(in_path, out_path, config: ResynthConfig | None = None, *,
@@ -612,6 +617,6 @@ def resynth_wav(in_path, out_path, config: ResynthConfig | None = None, *,
     mono = data.mean(axis=1)
     config = config or ResynthConfig()
     config.sample_rate = sr
-    out = resynthesize(mono, config, device=device).cpu().numpy()
+    out = resynthesize(mono, config, device=device)
     wavio.write_wav(out_path, out, sr)
     return out

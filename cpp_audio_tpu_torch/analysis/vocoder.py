@@ -16,8 +16,9 @@ Port of cpp_audio_tpu/analysis/vocoder.py (both fast modulator paths — the
 decimated single-sideband one and the full-band one — the exact per-window
 modulator, the carrier vocode, `vocode` with its WAV taps, and the
 filter-bank variant `vocode_filter_bank` on ops/filters.py's scans). The one-hot "strided sample" matmuls of the JAX package (a TPU
-gather workaround) are plain indexing here, its chunked cumsum is
-torch.cumsum, and the matmul DFT is dropped.
+gather workaround) are plain indexing here, its chunked cumsum is the
+port's ops/oscillators.chunked_cumsum (reproducible on a card), and the
+matmul DFT is dropped.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops import stft as stft_ops
+from ..ops.oscillators import chunked_cumsum
 
 MODULATOR_MAX_FFT = 2**16
 
@@ -249,7 +251,7 @@ def _modulator_band_amps_decimated(signal, *, edges, window: int, stride: int,
         dens = torch.where(live, dens, 0.0).to(fdt)
         if shape == "rectangular":
             delta = _windowed_energy_at_frames(
-                torch.cumsum(dens, 0), d=d, stride=stride, window=window,
+                chunked_cumsum(dens), d=d, stride=stride, window=window,
                 n_frames=n_frames)
         else:
             delta = _windowed_gauss_energy_conv(
@@ -301,7 +303,7 @@ def _modulator_band_amps_full(signal, *, edges, window: int, stride: int,
             dim=-1)
         return _amps_from_band_energy(band_e, window=window, shape=shape)
     y = torch.stack(ys, dim=0)
-    e = torch.cumsum(y * y, dim=-1)  # (bands, n) inclusive
+    e = chunked_cumsum(y * y)  # (bands, n) inclusive
     # e[min(f*S + W, n-1)] - e[f*S]: the edge clamp of the JAX package
     starts = torch.arange(n_frames, device=signal.device) * stride
     ends = torch.clamp(starts + window, max=n - 1)
@@ -382,8 +384,8 @@ def _write_taps(debug_dir, sample_rate: int, taps: dict) -> None:
 
 
 def vocode_filter_bank(modulator, carrier, params: VocoderParams, *,
-                       order: int = 1, debug_dir=None,
-                       device="cuda") -> torch.Tensor:
+                       order: int = 1, device_out: bool = False,
+                       debug_dir=None, device="cuda"):
     """Filter-bank + envelope-follower vocoder variant.
 
     The reference preserves this pre-FFT design in comments
@@ -397,7 +399,8 @@ def vocode_filter_bank(modulator, carrier, params: VocoderParams, *,
     This is where `env_follower_cutoff_ratio` (rt.resynth.lib.cpp:985,
     default 1/20) acts. Bands stack on a leading axis; each one-pole
     cascade is a chunked linear recurrence (ops/filters), float32 on
-    `device`. debug_dir: per-band envelopes (clipped to +-1) and the raw
+    `device`; the result is one host copy (numpy), or with device_out=True
+    the tensor. debug_dir: per-band envelopes (clipped to +-1) and the raw
     vocoded signal as WAVs, the JAX package's taps.
     """
     from ..ops import filters as flt
@@ -407,7 +410,8 @@ def vocode_filter_bank(modulator, carrier, params: VocoderParams, *,
     sr = params.sample_rate
     n = min(len(modulator), len(carrier))
     if n == 0:
-        return torch.zeros(0, dtype=torch.float32, device=dev)
+        out = torch.zeros(0, dtype=torch.float32, device=dev)
+        return out if device_out else out.cpu().numpy()
     fdt = torch.float32
     mod = torch.as_tensor(modulator, dtype=fdt, device=dev)[:n]
     car = torch.as_tensor(carrier, dtype=fdt, device=dev)[:n]
@@ -436,17 +440,18 @@ def vocode_filter_bank(modulator, carrier, params: VocoderParams, *,
         _write_taps(debug_dir, sr, {
             **{f"band_{b}": env[b].clamp(-1.0, 1.0) for b in range(env.shape[0])},
             "vocoded": vocoded})
-    return out
+    return out if device_out else out.cpu().numpy()
 
 
 def vocode(modulator, carrier, params: VocoderParams, *,
-           exact_modulator: bool = False, debug_dir=None,
-           device="cuda") -> torch.Tensor:
+           exact_modulator: bool = False, device_out: bool = False,
+           debug_dir=None, device="cuda"):
     """Offline vocoder: (modulator, carrier) mono signals -> mono output.
 
     Output sample t mixes volume_modulator*modulator + volume_carrier*carrier
     + volume_vocoded*vocoded (Vocoder compute, vocoder.cpp:761-812).
-    float32 on `device`. exact_modulator=True takes the per-window FFT
+    float32 on `device`; the result is one host copy (numpy), or with
+    device_out=True the tensor. exact_modulator=True takes the per-window FFT
     modulator (`_modulator_band_amps`, the reference's own form) instead of
     the O(n) whole-signal one.
 
@@ -469,7 +474,8 @@ def vocode(modulator, carrier, params: VocoderParams, *,
                              dtype=torch.float32, device=dev)
     n_mod_frames = max(0, (n - W) // S + 1)
     if n_mod_frames == 0:
-        return torch.zeros(0, dtype=torch.float32, device=dev)
+        out = torch.zeros(0, dtype=torch.float32, device=dev)
+        return out if device_out else out.cpu().numpy()
     if exact_modulator:
         mod_fft = stft_ops.fft_length_for(W)
         bm_mod = torch.as_tensor(_band_matrix(edges, mod_fft // 2 + 1, sr / mod_fft),
@@ -494,6 +500,7 @@ def vocode(modulator, carrier, params: VocoderParams, *,
             "modulator": modulator, "carrier": carrier,
             **{f"band_{b}": env[:, b].clamp(-1.0, 1.0) for b in range(env.shape[1])},
             "vocoded": vocoded})
-    return (params.volume_vocoded * vocoded
-            + params.volume_modulator * modulator[:out_len]
-            + params.volume_carrier * carrier[:out_len])
+    out = (params.volume_vocoded * vocoded
+           + params.volume_modulator * modulator[:out_len]
+           + params.volume_carrier * carrier[:out_len])
+    return out if device_out else out.cpu().numpy()

@@ -227,7 +227,7 @@ def main(argv=None):
         out = fn(mod.mean(axis=1), car.mean(axis=1),
                  vocoder.VocoderParams(sample_rate=sr),
                  debug_dir=args.debug_vocoder, device=dev)
-        wavio.write_wav(args.output, out.cpu().numpy(), sr)
+        wavio.write_wav(args.output, out, sr)
         print(f"wrote {args.output} (vocoded)")
         return 0
 

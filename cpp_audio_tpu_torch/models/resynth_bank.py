@@ -305,24 +305,27 @@ def _render_slots(table: torch.Tensor, *, stride: int,
     return out
 
 
-def render_table(table, config: TrackedRenderConfig, *,
-                 device="cuda") -> torch.Tensor:
+def render_table(table, config: TrackedRenderConfig,
+                 device_out: bool = False, *, device="cuda"):
     """Render a prebuilt (total_frames, n_slots, 16) control table (from
     _build_slot_tables or the fused C++ table packer, native/pitchpipe.cpp
-    pitchpipe_run_offline) -> (start_sample + total_frames*stride, C)."""
+    pitchpipe_run_offline) -> (start_sample + total_frames*stride, C): one
+    host copy (numpy), or with device_out=True the tensor on `device`."""
     dev = torch.device(device)
     table = torch.as_tensor(np.asarray(table) if not torch.is_tensor(table)
                             else table, device=dev)
     total_frames = table.shape[0]
     out = _render_slots(table, stride=config.stride, dtype=config.dtype)
     body = out.reshape(total_frames * config.stride, -1)[:, :config.n_channels]
-    return torch.nn.functional.pad(body, (0, 0, config.start_sample, 0))
+    out = torch.nn.functional.pad(body, (0, 0, config.start_sample, 0))
+    return out if device_out else out.cpu().numpy()
 
 
 def render_tracked(notes: list[TrackedNote], n_frames: int,
-                   config: TrackedRenderConfig, tail_frames: int = 8, *,
-                   device="cuda") -> torch.Tensor:
-    """Render tracked notes -> (start_sample + (n_frames+tail)*stride, C)."""
+                   config: TrackedRenderConfig, tail_frames: int = 8,
+                   device_out: bool = False, *, device="cuda"):
+    """Render tracked notes -> (start_sample + (n_frames+tail)*stride, C),
+    numpy or, with device_out=True, the tensor on `device`."""
     total_frames = n_frames + tail_frames
     table = _build_slot_tables(notes, total_frames, config)
-    return render_table(table, config, device=device)
+    return render_table(table, config, device_out, device=device)

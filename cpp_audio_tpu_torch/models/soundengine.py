@@ -571,7 +571,7 @@ def render_program_batch(program: VoiceProgram, base_freq: float,
                          n_samples: int, sample_rate: int = 44100, *,
                          seeds, velocity: float = 1.0, pans=None,
                          n_channels: int = 2, dtype: str = "float32",
-                         device_out: bool = True, device="cuda"):
+                         device_out: bool = False, device="cuda"):
     """Serve B independent SoundEngine renders (same program, different
     seeds) in one batched render (reference framing: one engine instance
     per call, main.birds.cpp:82-83 — this is the many-instance serving
@@ -579,8 +579,8 @@ def render_program_batch(program: VoiceProgram, base_freq: float,
 
     Returns (B, T_out, C) with T_out = min(n_samples, padded span of the
     longest job) — renders are silent past each job's span, so callers
-    treating row b as a length-n_samples render zero-extend. A tensor on
-    `device`, or with device_out=False one host copy of it (numpy)."""
+    treating row b as a length-n_samples render zero-extend. One host copy
+    (numpy), or with device_out=True the tensor on `device`."""
     sr = sample_rate
     min_dt = sr // 1000
     jobs = []

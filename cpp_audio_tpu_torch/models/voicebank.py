@@ -12,7 +12,8 @@ Port of cpp_audio_tpu/models/voicebank.py. Host precompute (envelope floors,
 release `top`, NCO words, per-block compaction) is numpy, as there; every
 block render goes through ops/cuda_voicebank.render_blocks, which runs the
 hand-written CUDA kernel for CUDA tensors and its plain PyTorch twin for CPU
-tensors. There is no `use_pallas` switch: the tensors' device decides.
+tensors. `use_pallas` is accepted for the JAX package's signature and
+ignored: the tensors' device decides.
 
 NCO words are int64 tensors in [0, 2^32): torch on the CPU has no uint32
 add, and a masked int64 computation keeps the low 32 bits exact.
@@ -233,8 +234,12 @@ def voicebank_blocks_compact_impl(fpb, ipb, upb, gainsb, codesb, *,
 
 
 def render_bank(bank: VoiceBank, n_samples: int, *, block_size: int = 32768,
-                dtype: str = "float32", device="cuda") -> torch.Tensor:
-    """Offline render of a VoiceBank -> (n_samples, C) tensor on `device`."""
+                dtype: str = "float32", use_pallas=None,
+                device="cuda") -> torch.Tensor:
+    """Offline render of a VoiceBank -> (n_samples, C) tensor on `device`.
+    use_pallas is accepted for the JAX package's signature and ignored (a
+    CUDA tensor always takes the CUDA kernel)."""
+    del use_pallas
     args, statics = prepare_bank_arrays(bank, n_samples, block_size, dtype,
                                         device=device)
     out = voicebank_blocks_impl(*args, **statics)
@@ -284,15 +289,16 @@ def _slice_bank(bank: VoiceBank, idx: np.ndarray, pad_rows: int,
 
 def render_bank_sparse(bank: VoiceBank, n_samples: int, *,
                        segment_size: int = 1 << 18, block_size: int = 32768,
-                       dtype: str = "float32", dense_rows: int = 256,
-                       device="cuda") -> torch.Tensor:
+                       dtype: str = "float32", use_pallas=None,
+                       dense_rows: int = 256, device="cuda") -> torch.Tensor:
     """render_bank for long, sparse schedules: partition the timeline into
     segments and render each with only the voices whose [press, release+R]
     interval overlaps it — O(sum_seg V_active(seg) * segment) instead of
     O(V * T), the analog of the reference's voice pool reusing 127 slots
     (gen.crtp.h:221-225). Row counts are padded to power-of-two buckets, as
-    in the JAX package.
+    in the JAX package. use_pallas: ignored, as in render_bank.
     """
+    del use_pallas
     V = bank.n_rows
     if V <= dense_rows or n_samples <= segment_size:
         return render_bank(bank, n_samples, block_size=block_size,

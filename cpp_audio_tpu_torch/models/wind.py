@@ -538,10 +538,10 @@ def render_program_batch(program: VoiceProgram, n_samples: int,
                          velocity: float = 1.0, pans=None,
                          n_channels: int = 2, dtype: str = "float32",
                          lowpass_mode: str = "control",
-                         device_out: bool = True, device="cuda"):
+                         device_out: bool = False, device="cuda"):
     """Serve B independent WIND renders (same program, different seeds) in
-    one batched render -> (B, n_samples, C): a tensor on `device`, or with
-    device_out=False one host copy of it (numpy).
+    one batched render -> (B, n_samples, C): one host copy (numpy), or with
+    device_out=True the tensor on `device`.
 
     Per-instance host work is only the walks' starts and the pan (the
     device-controls path); requires spec_short_amp == 0 like

@@ -90,15 +90,25 @@ def _limit(x: torch.Tensor, p0, ceiling: float, release: float):
 
 
 def limit(x, *, ceiling: float = 1.0, release_ms: float = 50.0,
-          sample_rate: int = 44100, device="cuda"):
+          sample_rate: int = 44100, axis: int = 0, device="cuda"):
     """Limit so |output| <= ceiling, with smooth gain recovery.
 
     x: (frames,) or (frames, channels). Multi-channel input is limited by
     the cross-channel peak so the stereo image is preserved (matching the
     reference's single Limiter on the interleaved bus, out.h:427,605-648).
+    axis: the time axis, as in the JAX package: for x of three or more
+    dimensions every element is followed on its own along `axis`; for one
+    or two it is the frames axis, 0 (or -1 of the peak's one dimension).
     """
     x = to_tensor(x, device)
-    y, _p = _limit(x, 0.0, ceiling, _release(release_ms, sample_rate))
+    release = _release(release_ms, sample_rate)
+    if x.dim() > 2:
+        p = peak_follower(x.abs(), release, axis=axis, device=x.device)
+        return x * torch.clamp(ceiling / torch.clamp(p, min=1e-12), max=1.0)
+    if axis not in (0, -1):
+        raise ValueError(f"axis {axis} is out of bounds for the peak of a "
+                         f"{x.dim()}-D input (one dimension)")
+    y, _p = _limit(x, 0.0, ceiling, release)
     return y
 
 

@@ -485,8 +485,9 @@ def make_sharded_chain(mesh: DeviceMesh, n_samples: int, rconfig, vparams,
     of the world size, so stereo runs (start_sample + total_frames*stride)
     samples. Only the no-autotune/no-harmonize float32 config subset, as
     JAX's (the single-device chain.run_offline_chain_device covers the
-    rest). Every rank runs the tracker: on several cards their float
-    scatter-adds may round apart (ROADMAP §C).
+    rest). Every rank runs the tracker on the same gathered peaks; its
+    float sums have an order fixed by the shapes, so every rank builds the
+    same table, to the bit.
     """
     build, _cs = _sharded_chain(mesh, n_samples, rconfig, vparams,
                                 block_size=block_size, axis=axis, device=device)

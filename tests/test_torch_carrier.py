@@ -186,6 +186,19 @@ def _osc_cases():
             lambda m, e: m.phase_trajectory(np.array([0.3, 1.9, 0.0]), inc)[0],
             lambda m, e: m.phase_trajectory(torch.tensor([0.3, 1.9, 0.0], dtype=torch.float64),
                                             torch.from_numpy(inc))[0]),
+        "phase_trajectory_axis0": (
+            lambda m, e: m.phase_trajectory(np.array([0.3, 1.9, 0.0]), inc.T, axis=0)[0],
+            lambda m, e: m.phase_trajectory(torch.tensor([0.3, 1.9, 0.0], dtype=torch.float64),
+                                            torch.from_numpy(inc.T), axis=0)[0]),
+        "chunked_cumsum_axis0": (
+            lambda m, e: m.chunked_cumsum(np.ones((4, 3)), axis=0),
+            lambda m, e: m.chunked_cumsum(np.ones((4, 3)), axis=0)),
+        "chunked_cumsum_axis1": (
+            lambda m, e: m.chunked_cumsum(np.ones((4, 3)), axis=1),
+            lambda m, e: m.chunked_cumsum(np.ones((4, 3)), axis=1)),
+        "chunked_cumsum_long_axis0": (  # several chunks of either package
+            lambda m, e: m.chunked_cumsum(inc.T.copy(), axis=0, chunk=128),
+            lambda m, e: m.chunked_cumsum(torch.from_numpy(inc.T.copy()), axis=0, chunk=64)),
         "phase_trajectory_const": (
             lambda m, e: m.phase_trajectory_const(np.array([0.5, 1.2]), inc1, 400,
                                                   dtype=np.float64),

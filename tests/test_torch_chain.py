@@ -77,7 +77,8 @@ def test_resynthesize_matches_jax(implementation):
     ref = np.asarray(resynth.resynthesize(sig, resynth.ResynthConfig(**kw),
                                           implementation=implementation))
     got = tresynth.resynthesize(sig, tresynth.ResynthConfig(**kw),
-                                implementation=implementation, device="cpu").numpy()
+                                implementation=implementation, device_out=True,
+                                device="cpu").numpy()
     assert got.shape == ref.shape
     peak = float(np.abs(ref).max())
     assert peak > 1e-3
@@ -94,7 +95,8 @@ def test_resynthesize_device_matches_jax(implementation):
     ref = np.asarray(resynth.resynthesize(sig, resynth.ResynthConfig(**kw),
                                           implementation=implementation))
     got = tresynth.resynthesize(sig, tresynth.ResynthConfig(**kw),
-                                implementation=implementation, device="cpu").numpy()
+                                implementation=implementation, device_out=True,
+                                device="cpu").numpy()
     assert got.shape == ref.shape and got.shape[1] == 2
     peak = float(np.abs(ref).max())
     assert peak > 1e-3
@@ -110,7 +112,8 @@ def test_resynthesize_prefer_native_false_matches_jax():
     ref = np.asarray(resynth.resynthesize(sig, resynth.ResynthConfig(**kw),
                                           prefer_native=False))
     got = tresynth.resynthesize(sig, tresynth.ResynthConfig(**kw),
-                                prefer_native=False, device="cpu").numpy()
+                                prefer_native=False, device_out=True,
+                                device="cpu").numpy()
     assert got.shape == ref.shape and got.shape[1] == 2
     peak = float(np.abs(ref).max())
     assert peak > 1e-3
@@ -206,3 +209,30 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+@pytest.mark.parametrize("device_out", [False, True])
+def test_resynthesize_device_out_matches_jax(device_out):
+    """resynthesize's device_out as JAX's: numpy by default, the tensor on
+    the requested device with True; at the resynth leg's bar."""
+    n = 2 * SR
+    sig = _tone_signal(n)
+    kw = dict(sample_rate=SR, analysis_volume=1.0, dtype="float32")
+    ref = resynth.resynthesize(sig, resynth.ResynthConfig(**kw), device_out=device_out)
+    out_kw = {"device_out": True} if device_out else {}
+    got = tresynth.resynthesize(sig, tresynth.ResynthConfig(**kw), device="cpu", **out_kw)
+    if device_out:
+        assert torch.is_tensor(got) and got.device == torch.device("cpu")
+        got = got.numpy()
+    else:
+        assert isinstance(got, np.ndarray) and isinstance(ref, np.ndarray)
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape
+    assert float(np.abs(got - ref).max()) / float(np.abs(ref).max()) < 2e-3
+
+
+def test_version_matches_jax():
+    import cpp_audio_tpu
+    import cpp_audio_tpu_torch
+
+    assert cpp_audio_tpu_torch.__version__ == cpp_audio_tpu.__version__ == "0.1.0"

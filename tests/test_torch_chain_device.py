@@ -105,6 +105,45 @@ def test_prepare_returns_framed_step():
     assert torch.equal(flat[stride:2 * stride], framed[1])
 
 
+def _mod_mode_mixes(dtype, n):
+    """The vocoder mix of prepare_offline_chain_device's step() at `dtype`
+    with mod_mode None and "full", on tests/test_chain.py's workload at n
+    samples."""
+    bank, scfg = _workload(SR, n)
+    args = (interop.voicebank_from_numpy(bank), n,
+            tresynth.ResynthConfig(sample_rate=SR, dtype=dtype),
+            tvocoder.VocoderParams(sample_rate=SR), CARRIER[:n])
+    kw = dict(block_size=scfg.block_size, device="cpu")
+    return [tchain.prepare_offline_chain_device(*args, mod_mode=mode, **kw)[0]()[1]
+            for mode in (None, "full")]
+
+
+def test_mod_mode_full_matches_jax():
+    """prepare_offline_chain_device(mod_mode="full") takes the full-band
+    modulator path, as JAX's (chain.py:457): the vocoded leg at the chain's
+    atol 1e-4 against JAX's; it differs from the default "decimated"
+    path."""
+    n = SR
+    bank, scfg = _workload(SR, n)
+    step, _ = chain.prepare_offline_chain_device(
+        bank, n, resynth.ResynthConfig(**CFG), vocoder.VocoderParams(sample_rate=SR),
+        CARRIER[:n], block_size=scfg.block_size, mod_mode="full")
+    ref = np.asarray(step()[1])
+    default, full = _mod_mode_mixes("float32", n)
+    assert full.shape == ref.shape and float(np.abs(ref).max()) > 1e-3
+    np.testing.assert_allclose(full.numpy(), ref, atol=1e-4)
+    assert not torch.equal(full, default)
+
+
+def test_mod_mode_reaches_the_df32_chain():
+    """The fidelity chain's vocoder (float32, on the same float32 synth)
+    takes mod_mode too: its "full" mix is the float32 chain's."""
+    n = SR // 2
+    default, full = _mod_mode_mixes("df32", n)
+    assert not torch.equal(full, default)
+    assert torch.equal(full, _mod_mode_mixes("float32", n)[1])
+
+
 def test_df32_device_chain_returns_framed_stereo():
     """The fidelity chain (dtype "df32") through prepare_offline_chain_device:
     step() gives the framed (F, S, 2) float32 render, the float32 vocoder

@@ -5,11 +5,12 @@ same numpy peaks, on the CPU.
 Float64 (the JAX tests run their tracker in float64, conftest enables x64):
 the frame-local stage's tuned pitches and volumes at rtol 1e-12 with the
 loudness order equal; the batched matching equal; the slot tables at rtol
-1e-9, atol 1e-12 with the dropped-NoteOn counts equal. The port's group
-sums are scatter-adds where JAX contracts one-hot matrices, so the sums of
-three or more peaks may round differently in the last bit; the tables carry
-that through float64 recurrences (pow, expm1, the mod-2 phase), which is
-what the table tolerance allows for.
+1e-9, atol 1e-12 with the dropped-NoteOn counts equal. Both packages form
+the group sums as one-hot contractions, but each reduces in its own fixed
+order (torch's sum over the lane axis, XLA's dot), so the sums of three or
+more peaks may round differently in the last bit; the tables carry that
+through float64 recurrences (pow, expm1, the mod-2 phase), which is what
+the table tolerance allows for.
 Float32: the rendered tables at max|diff| < 1e-4 * peak + 1e-7 (the bar of
 tests/test_device_tracker.py:179).
 """

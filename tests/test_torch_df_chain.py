@@ -109,7 +109,8 @@ def df_chain():
     rcfg64 = tresynth._render_config(cfg64)
     notes, _stats, _dropped = tresynth.track(
         tstft.top_peaks_to_lists(freq, mag), cfg64, prefer_native=False)
-    same = trb.render_tracked(notes, freq.shape[0], rcfg64, device="cpu")
+    same = trb.render_tracked(notes, freq.shape[0], rcfg64, device_out=True,
+                              device="cpu")
     vparams = vocoder.VocoderParams(sample_rate=SR)
     host64 = chain.host_chain_table(
         bank, N, resynth.ResynthConfig(sample_rate=SR, analysis_volume=1.0,
@@ -173,12 +174,12 @@ def test_resynthesize_routes_df32():
     sig = _tone_signal(N)
     kw = dict(sample_rate=SR, analysis_volume=1.0, dtype="df32")
     tcfg = tresynth.ResynthConfig(**kw)
-    auto = tresynth.resynthesize(sig, tcfg, device="cpu")
+    auto = tresynth.resynthesize(sig, tcfg, device_out=True, device="cpu")
     device = tchain.resynthesize_signal_device(sig, tcfg, device="cpu")
     assert auto.dtype == torch.float32 and auto.shape[1] == 2
     assert torch.equal(auto, device)
     native = tresynth.resynthesize(sig, tcfg, implementation="native",
-                                   device="cpu")
+                                   device_out=True, device="cpu")
     ref = np.asarray(resynth.resynthesize(sig, resynth.ResynthConfig(**kw),
                                           implementation="native"))
     assert native.dtype == torch.float32

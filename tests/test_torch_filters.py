@@ -130,7 +130,7 @@ def _signals(n, sr, mod_freq=330.0, trem=3.0):
 def filter_bank_pair():
     mod, car = _signals(SR, SR)
     got = tvoc.vocode_filter_bank(mod, car, tvoc.VocoderParams(sample_rate=SR),
-                                  device="cpu")
+                                  device_out=True, device="cpu")
     ref = jvoc.vocode_filter_bank(mod, car, jvoc.VocoderParams(sample_rate=SR))
     return mod, car, got, ref
 
@@ -142,7 +142,8 @@ def test_filter_bank_vocoder_matches_jax(filter_bank_pair):
     # tests/test_vocoder_filterbank.py::test_env_follower_tracks_band_energy
     assert np.abs(got.numpy()).max() > 1e-3
     p = tvoc.VocoderParams(sample_rate=SR, count_bands=4)
-    silent = tvoc.vocode_filter_bank(np.zeros(SR), car, p, device="cpu")
+    silent = tvoc.vocode_filter_bank(np.zeros(SR), car, p, device_out=True,
+                                     device="cpu")
     assert float(silent.abs().max()) < 1e-6
 
 
@@ -175,7 +176,7 @@ def test_filter_bank_cutoff_ratio_and_volume_mix():
     def depth(ratio):
         out = tvoc.vocode_filter_bank(
             mod, car, tvoc.VocoderParams(sample_rate=SR, env_follower_cutoff_ratio=ratio),
-            device="cpu").numpy()
+            device_out=True, device="cpu").numpy()
         b = SR // 20
         rms = np.array([np.sqrt((out[i:i + b] ** 2).mean())
                         for i in range(0, n - b, b)])[2:]
@@ -185,7 +186,8 @@ def test_filter_bank_cutoff_ratio_and_volume_mix():
     mod, car = _signals(8192, SR)
     p = tvoc.VocoderParams(sample_rate=SR, volume_vocoded=0.0, volume_modulator=0.5,
                            volume_carrier=0.25)
-    np.testing.assert_allclose(tvoc.vocode_filter_bank(mod, car, p, device="cpu").numpy(),
+    np.testing.assert_allclose(tvoc.vocode_filter_bank(mod, car, p, device_out=True,
+                                                       device="cpu").numpy(),
                                0.5 * mod + 0.25 * car, atol=1e-5)
 
 
@@ -193,7 +195,8 @@ def test_filter_bank_contrast_with_fft_mode(filter_bank_pair):
     """tests/test_vocoder_filterbank.py::test_contrast_with_fft_mode on the
     port: both modes carry the tremolo, but differ."""
     mod, car, got, _ref = filter_bank_pair
-    out_fft = tvoc.vocode(mod, car, tvoc.VocoderParams(sample_rate=SR), device="cpu").numpy()
+    out_fft = tvoc.vocode(mod, car, tvoc.VocoderParams(sample_rate=SR), device_out=True,
+                          device="cpu").numpy()
     out_fb = got.numpy()
     m = min(len(out_fft), len(out_fb))
     b = SR // 20
@@ -228,3 +231,22 @@ def test_debug_dir_taps_match_jax(tmp_path, mode):
         b, srb = jwav.read_wav(td / name)
         assert sra == srb == SR and a.shape == b.shape
         np.testing.assert_allclose(b, a, rtol=0, atol=bar, err_msg=name)
+
+
+@pytest.mark.parametrize("device_out", [False, True])
+def test_filter_bank_device_out_matches_jax(filter_bank_pair, device_out):
+    """vocode_filter_bank's device_out as JAX's: numpy by default, the tensor
+    on the requested device with True; at the filter bank's bar."""
+    mod, car, _got, ref = filter_bank_pair
+    kw = {"device_out": True} if device_out else {}
+    out = tvoc.vocode_filter_bank(mod, car, tvoc.VocoderParams(sample_rate=SR),
+                                  device="cpu", **kw)
+    if device_out:
+        assert torch.is_tensor(out) and out.device == torch.device("cpu")
+        out = out.numpy()
+    else:
+        assert isinstance(out, np.ndarray)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+    empty = tvoc.vocode_filter_bank(mod[:0], car[:0], tvoc.VocoderParams(sample_rate=SR),
+                                    device="cpu", **kw)
+    assert torch.is_tensor(empty) == device_out and empty.shape == (0,)

@@ -61,6 +61,33 @@ def test_limit_matches_jax(channels):
     assert np.abs(got).max() <= 1.0 + 1e-12
 
 
+@pytest.mark.parametrize("axis", [1, -2])
+def test_limit_axis_matches_jax(axis):
+    """limit(x.T, axis=) on a 3-D input, time on axis 1 of x.T, as JAX's:
+    every element followed on its own along the time axis."""
+    y = np.stack([_ramp_noise(6000, channels=3, seed=4),
+                  0.5 * _ramp_noise(6000, channels=3, seed=6)])  # (2, 6000, 3)
+    x = y.T
+    got = tlim.limit(x, axis=axis, device="cpu").numpy()
+    jax = np.asarray(jlim.limit(x, axis=axis))
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got, jax, rtol=0, atol=F64_BAR * np.abs(x).max())
+    assert np.abs(got).max() <= 1.0 + 1e-12
+
+
+def test_limit_axis_of_a_2d_input_is_its_frames():
+    """limit(x.T, axis=1) has the (frames,) peak to follow: JAX and the port
+    refuse it alike; axis 0 and -1 are the default's result."""
+    x = _ramp_noise(3000, channels=2, seed=5)
+    with pytest.raises(ValueError):
+        jlim.limit(x, axis=1)
+    with pytest.raises(ValueError):
+        tlim.limit(x, axis=1, device="cpu")
+    for axis in (0, -1):
+        np.testing.assert_array_equal(tlim.limit(x, axis=axis, device="cpu").numpy(),
+                                      tlim.limit(x, device="cpu").numpy())
+
+
 def test_limit_passthrough_and_ceiling():
     x = 0.5 * np.sin(np.linspace(0, 50, 4000))
     np.testing.assert_allclose(tlim.limit(x[:, None], device="cpu").numpy()[:, 0], x,

@@ -161,7 +161,7 @@ def test_resynthesize_feedback_returns_a_device_tensor_and_zero_gain_is_plain():
     voice = _voice(0.4)
     cfg = trs.ResynthConfig(sample_rate=SR, window_size_seconds=0.05,
                             window_center_stride_seconds=0.025)
-    plain = trs.resynthesize(voice, cfg, device="cpu")
+    plain = trs.resynthesize(voice, cfg, device_out=True, device="cpu")
     fb0 = trs.resynthesize_feedback(voice, cfg, feedback_gain=0.0, device="cpu")
     assert torch.is_tensor(fb0)
     np.testing.assert_array_equal(fb0.numpy(), plain.numpy())

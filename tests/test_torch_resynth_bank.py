@@ -107,7 +107,7 @@ def test_render_tracked_matches():
     cfg, tcfg = _configs(n_slots=32, start_sample=7999)
     ref = rb.render_tracked(_notes(rb, 20, seed=3, glide=False), 20, cfg)
     got = trb.render_tracked(_notes(trb, 20, seed=3, glide=False), 20, tcfg,
-                             device="cpu").numpy()
+                             device_out=True, device="cpu").numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=5e-5)
 
@@ -122,3 +122,25 @@ def test_df_phase_table_is_refused():
                               dtype="float32")
     out = trb._render_slots(torch.zeros((2, 4, 17)), stride=16, dtype="float32")
     assert out.shape == (2, 16, 2)
+
+
+@pytest.mark.parametrize("device_out", [False, True])
+def test_render_table_and_tracked_device_out_match_jax(device_out):
+    """render_table and render_tracked take JAX's device_out (positional
+    third/fifth argument there too): numpy by default, the tensor on the
+    requested device with True."""
+    cfg, tcfg = _configs(n_slots=16, start_sample=100)
+    notes = _notes(rb, 12, seed=5, glide=False)
+    ref = rb.render_tracked(notes, 12, cfg, 8, device_out)
+    table = trb._build_slot_tables(_notes(trb, 12, seed=5, glide=False), 20, tcfg)
+    kw = {"device_out": True} if device_out else {}
+    for got in (trb.render_tracked(_notes(trb, 12, seed=5, glide=False), 12, tcfg,
+                                   device="cpu", **kw),
+                trb.render_table(table, tcfg, device="cpu", **kw)):
+        if device_out:
+            assert torch.is_tensor(got) and got.device == torch.device("cpu")
+            got = got.numpy()
+        else:
+            assert isinstance(got, np.ndarray)
+        assert got.shape == np.asarray(ref).shape
+        np.testing.assert_allclose(got, np.asarray(ref), atol=5e-5)

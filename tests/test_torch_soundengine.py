@@ -186,7 +186,8 @@ def test_render_program_batch_matches_jax_and_single_renders():
     jp, tp = _programs(tvp.Mode.BIRDS, tvp.PROGRAMS[tvp.Mode.BIRDS][0].name)
     seeds = [2, 5, 9, 11]
     want = np.asarray(jse.render_program_batch(jp, 440.0, N, SR, seeds=seeds))
-    got = tse.render_program_batch(tp, 440.0, N, SR, seeds=seeds, device="cpu")
+    got = tse.render_program_batch(tp, 440.0, N, SR, seeds=seeds, device_out=True,
+                                   device="cpu")
     assert torch.is_tensor(got) and got.shape == want.shape
     got = got.numpy()
     assert np.abs(got - want).max() <= F32_BAR * np.abs(want).max()
@@ -205,6 +206,20 @@ def test_render_is_deterministic():
     a = tse.render_program(tp, 440.0, N, seed=63, device="cpu")
     b = tse.render_program(tp, 440.0, N, seed=63, device="cpu")
     assert torch.equal(a, b)
-    c = tse.render_program_batch(tp, 440.0, N, seeds=[4, 63], device="cpu")
-    d = tse.render_program_batch(tp, 440.0, N, seeds=[4, 63], device="cpu")
+    c = tse.render_program_batch(tp, 440.0, N, seeds=[4, 63], device_out=True,
+                                 device="cpu")
+    d = tse.render_program_batch(tp, 440.0, N, seeds=[4, 63], device_out=True,
+                                 device="cpu")
     assert torch.equal(c, d)
+
+
+def test_render_program_batch_defaults_to_host_like_jax():
+    """render_program_batch's default is JAX's, device_out=False: one host
+    copy (numpy), at the batch's bar against JAX's."""
+    jp, tp = _programs(tvp.Mode.BIRDS, tvp.PROGRAMS[tvp.Mode.BIRDS][0].name)
+    seeds = [2, 5, 9, 11]
+    want = jse.render_program_batch(jp, 440.0, N, SR, seeds=seeds)
+    got = tse.render_program_batch(tp, 440.0, N, SR, seeds=seeds, device="cpu")
+    assert isinstance(want, np.ndarray) and isinstance(got, np.ndarray)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= F32_BAR * np.abs(want).max()

@@ -134,7 +134,8 @@ class TestStreamingVocoder:
         S, W = p.stride, p.modulator_window
         n = SR // 2
         mod, car = _signals(n)
-        off = tvocoder.vocode(mod, car, p, exact_modulator=True, device="cpu").numpy()
+        off = tvocoder.vocode(mod, car, p, exact_modulator=True, device_out=True,
+                              device="cpu").numpy()
         stream = _stream(tstreaming.StreamingVocoder(p, device="cpu"), mod, car, block)
         lag = 2 * S - 1
         warm = W + 2 * S

@@ -87,7 +87,7 @@ def test_vocode_matches():
     ref = vocoder.vocode(mod, carrier, p)
     got = tvoc.vocode(mod, carrier, tvoc.VocoderParams(sample_rate=SR,
                                                       volume_modulator=0.2),
-                      device="cpu").numpy()
+                      device_out=True, device="cpu").numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=1e-4)
 
@@ -120,6 +120,26 @@ def test_vocode_exact_modulator_matches():
     ref = np.asarray(vocoder.vocode(mod, carrier, vocoder.VocoderParams(**kw),
                                     exact_modulator=True))
     got = tvoc.vocode(mod, carrier, tvoc.VocoderParams(**kw), exact_modulator=True,
-                      device="cpu").numpy()
+                      device_out=True, device="cpu").numpy()
     assert got.shape == ref.shape and np.abs(ref).max() > 0.05
     np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("device_out", [False, True])
+def test_vocode_device_out_matches_jax(device_out):
+    """device_out with JAX's meaning: False (the default) makes one host copy
+    (numpy), True returns the tensor on the requested device; both at
+    vocode's bar against JAX."""
+    n = SR // 2
+    mod = _modulator(n, seed=4)
+    carrier = np.sign(np.sin(2 * np.pi * 110.0 * np.arange(n) / SR))
+    ref = vocoder.vocode(mod, carrier, vocoder.VocoderParams(sample_rate=SR),
+                         device_out=device_out)
+    kw = {"device_out": True} if device_out else {}
+    got = tvoc.vocode(mod, carrier, tvoc.VocoderParams(sample_rate=SR), device="cpu", **kw)
+    if device_out:
+        assert torch.is_tensor(got) and got.device == torch.device("cpu")
+        got = got.numpy()
+    else:
+        assert isinstance(got, np.ndarray) and isinstance(ref, np.ndarray)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=1e-4)

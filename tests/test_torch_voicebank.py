@@ -157,6 +157,21 @@ def test_render_bank_and_sparse_match_jax():
     np.testing.assert_allclose(got_s, ref_s, atol=ATOL)
 
 
+@pytest.mark.parametrize("use_pallas", [None, True, "always", "never"])
+def test_render_bank_accepts_use_pallas(use_pallas):
+    """use_pallas is JAX's keyword; the port accepts and ignores it (the
+    tensors' device picks the kernel or its plain version)."""
+    n = 8192 + 100
+    pbank = interop.voicebank_from_numpy(make_bank(12, seed=4))
+    base = tvb.render_bank(pbank, n, block_size=2048, device="cpu")
+    assert torch.equal(tvb.render_bank(pbank, n, block_size=2048, use_pallas=use_pallas,
+                                       device="cpu"), base)
+    kw = dict(segment_size=4096, block_size=2048, dense_rows=4)
+    assert torch.equal(tvb.render_bank_sparse(pbank, n, use_pallas=use_pallas,
+                                              device="cpu", **kw),
+                       tvb.render_bank_sparse(pbank, n, device="cpu", **kw))
+
+
 def test_retuned_phase0_matches_jax():
     for args in [(100, 5000, 0.3, 0.01, 0.013), (0, 1, 1.9, 1.5, 0.0001),
                  (-50, 2**20, 0.0, 0.999, 0.5)]:

@@ -212,7 +212,8 @@ def test_device_controls_match_host_walks():
 def test_batch_matches_single_renders_and_jax():
     jp, tp = _programs("Heavy rain")
     seeds = [2, 7, 11]
-    got = twind.render_program_batch(tp, N, SR, seeds=seeds, device="cpu")
+    got = twind.render_program_batch(tp, N, SR, seeds=seeds, device_out=True,
+                                     device="cpu")
     assert torch.is_tensor(got) and got.shape == (3, N, 2)
     got = got.numpy()
     for bi, seed in enumerate(seeds):
@@ -232,5 +233,18 @@ def test_renders_are_deterministic():
         a = twind.render_program(tp, N, seed=9, device="cpu", **kw)
         b = twind.render_program(tp, N, seed=9, device="cpu", **kw)
         assert torch.equal(a, b)
-    c = twind.render_program_batch(tp, N, seeds=[1, 9], device="cpu")
-    assert torch.equal(c, twind.render_program_batch(tp, N, seeds=[1, 9], device="cpu"))
+    c = twind.render_program_batch(tp, N, seeds=[1, 9], device_out=True, device="cpu")
+    assert torch.equal(c, twind.render_program_batch(tp, N, seeds=[1, 9], device_out=True,
+                                                     device="cpu"))
+
+
+def test_render_program_batch_defaults_to_host_like_jax():
+    """render_program_batch's default is JAX's, device_out=False: one host
+    copy (numpy), at the batch's bar against JAX's."""
+    jp, tp = _programs("Heavy rain")
+    seeds = [2, 7, 11]
+    want = jwind.render_program_batch(jp, N, SR, seeds=seeds)
+    got = twind.render_program_batch(tp, N, SR, seeds=seeds, device="cpu")
+    assert isinstance(want, np.ndarray) and isinstance(got, np.ndarray)
+    assert got.shape == want.shape
+    assert _rms_rel(got, want) <= RMS_BAR
