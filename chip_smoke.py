@@ -18,7 +18,10 @@ Phases (any failure exits non-zero and prints no result):
          `ms`, at (a), as since the first slice), and `cuda_ms_amortized`,
          back-to-back calls behind a device sleep; plain time at (a); the
          live voice-samples, the kernel's bound
-         (cuda_voicebank.kernel_bound) and the share reached.
+         (cuda_voicebank.kernel_bound) and the share reached. (d) the
+         kernel's float64 instantiation on (c)'s and (b)'s banks in
+         float64, bar 1e-12, its time amortized at (c) (`ms_f64`) beside
+         its plain version's and its bound (FP64 peak).
   3. the offline chain at bench width (bench.py:52-75 rebuilt on the port's
      modules: seed 42, 64 voices, 60 s at 44.1 kHz, block 2^18, 110 Hz
      square carrier, float32) through run_offline_chain on cuda. The kernel
@@ -173,7 +176,37 @@ Phases (any failure exits non-zero and prints no result):
      device tracker's tables (recorded around build_tables_device) and the
      dropped counts held against the first run's to the bit; one line per
      path with max|diff|, the tables' and dropped's equality and the kernel
-     launches (`launches_repro`: the float32 chain's 5 runs).
+     launches (`launches_repro`: the float32 chain's 5 runs); and the
+     batched serving step of phase 16 (a), its tables recorded around
+     build_tables_device_batch.
+ 16. batched serving (analysis/chain.prepare_offline_chain_device_batch):
+     (a) 16 jobs of the headline (make_synth_workload seeds 42-57, 64
+     voices, 60 s, block 2^18, the 110 Hz square carrier, float32) in one
+     step(): first call and 5 warm walls ending in
+     torch.cuda.synchronize(), the wall per job beside phase 4's
+     run_offline_chain_device, kernel launches per step (must be 1; the
+     count set to 0 just before a step and read just after: the kernels
+     line's `launches_batch`), the tracker's host syncs and path,
+     synchronising calls (sync debug mode) against a single chain's step()
+     (no more), peak device memory, profile. The batched synth: each job's
+     slice equal to the bit to that job's own launch, max|kernel - plain|
+     (bar 2e-5), its time amortized (`ms_batch`) beside its bound
+     (`bound_batch`, cuda_voicebank.kernel_bound over every job's live
+     voice-samples). Each job within 1e-3 (resynth) and 3e-3 (vocoded) of
+     the peak of run_offline_chain_device on its bank on cuda, dropped
+     equal; then a float64 batch of 2 (seeds 42, 43) against float64
+     singles at the same bars, its synth (the kernel's float64
+     instantiation) equal to the bit to each job's own launch and within
+     1e-12 of the plain version. (b) bench.py's breadth configurations
+     (bench.py:424-452: 127 voices; use_autotune with MUSICAL_SCALE) and
+     harmonize pre 7 + post 12 "merged", each through
+     run_offline_chain_device at the headline width (first call, 5 warm
+     walls, launches, tracker path, peak memory), then as a batch of 4
+     (seeds 42-45) held against its singles as in (a); and each on a 2 s
+     workload on cuda against the CPU at phase 6's bars: 127 voices and
+     the harmonize over the whole chain in float64 (the same chains in
+     float32 printed as a reading, without a bar; see _serving_reference),
+     autotune as phase 6 holds it.
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -194,9 +227,14 @@ import traceback
 import numpy as np
 
 KERNEL_BAR = 2e-5          # tests/test_pallas_voicebank.py:45
+# float64: the kernel and the plain version compute the same exact forms;
+# they differ in FMA contraction, summation order and the last ulp of sin,
+# cos and exp2 (tests/test_torch_cuda_kernels.py:test_kernel_float64_matches_plain)
+KERNEL_BAR_F64 = 1e-12
 SR = 44100
 SECONDS = 60.0
 BENCH_BLOCK = 1 << 18      # bench.py:71
+CHAIN_WALLS = {}           # phase 4 and 7's median warm walls, by dtype
 
 
 def card_line() -> str:
@@ -335,8 +373,9 @@ def phase_build():
             print(f"[build] {line.strip()}")
 
 
-def _hold(name, tables, statics) -> float:
-    """max |kernel - plain| on one table set; fails above the bar."""
+def _hold(name, tables, statics, bar=None) -> float:
+    """max |kernel - plain| on one job's table set (with the job axis);
+    fails above the bar (KERNEL_BAR unless given)."""
     import torch
 
     from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
@@ -345,16 +384,19 @@ def _hold(name, tables, statics) -> float:
     p_out = cv.render_blocks_plain(*tables, **statics)
     torch.cuda.synchronize()
     err = float((k_out - p_out).abs().max())
-    print(f"[kernel] {name} {tuple(tables[0].shape)} B={statics['block_size']}: "
-          f"max|kernel-plain| = {err:.3e}  peak {float(p_out.abs().max()):.4f}")
-    if not err <= KERNEL_BAR:
-        raise RuntimeError(f"kernel disagrees with plain on {name}: {err} > {KERNEL_BAR}")
+    bar = KERNEL_BAR if bar is None else bar
+    print(f"[kernel] {name} {tuple(tables[0].shape)} {tables[0].dtype} "
+          f"B={statics['block_size']}: max|kernel-plain| = {err:.3e} (bar {bar})  "
+          f"peak {float(p_out.abs().max()):.4f}")
+    if not (err <= bar and k_out.dtype == p_out.dtype == tables[0].dtype):
+        raise RuntimeError(f"kernel disagrees with plain on {name}: {err} > {bar}")
     return err
 
 
 def phase_kernel_vs_plain() -> dict:
-    """Holds the kernel against its plain version on (a), (b), (c) and
-    times it; returns the measured keys of its entry in the kernels line."""
+    """Holds the kernel against its plain version on (a), (b), (c) and, in
+    float64, (d), and times it; returns the measured keys of its entry in
+    the kernels line."""
     from cpp_audio_tpu_torch.models import sine_synth, voicebank
     from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 
@@ -366,13 +408,22 @@ def phase_kernel_vs_plain() -> dict:
     if tuple(cargs[0].shape[:2]) != (11, 48):
         raise RuntimeError(f"bench tables compacted to {tuple(cargs[0].shape)}, "
                            "expected (11, 48, 8)")
+    args, cargs = cv.one_job(args), cv.one_job(cargs)
     err = _hold("(a) compacted LINEAR", cargs, cst)
     ne, be = 1 << 17, 1 << 14
     eargs, est = voicebank.prepare_bank_arrays(eased_bank(ne), ne, be, device="cuda")
     if sorted(set(eargs[4].flatten().tolist())) != list(range(23)):
         raise RuntimeError("eased bank does not cover all 23 curve codes")
-    err = max(err, _hold("(b) dense eased", eargs, est))
+    err = max(err, _hold("(b) dense eased", cv.one_job(eargs), est))
     err = max(err, _hold("(c) dense headline (the chain's)", args, st))
+    # (d) the float64 instantiation on the headline's tables (the float64
+    # chains' synth), and on the eased bank
+    args64 = cv.one_job(voicebank.prepare_bank_arrays(bank, n, BENCH_BLOCK, "float64",
+                                                      device="cuda")[0])
+    err64 = _hold("(d) dense headline float64", args64, st, KERNEL_BAR_F64)
+    e64 = voicebank.prepare_bank_arrays(eased_bank(ne), ne, be, "float64", device="cuda")[0]
+    err64 = max(err64, _hold("(d) dense eased float64", cv.one_job(e64), est,
+                             KERNEL_BAR_F64))
 
     def kernel_a():
         return cv.render_blocks_cuda(*cargs, **cst)
@@ -383,6 +434,9 @@ def phase_kernel_vs_plain() -> dict:
     times = {"ms": cuda_ms(kernel_a), "ms_amortized": cuda_ms_amortized(kernel_a),
              "ms_chain_tables": cuda_ms(kernel_c),
              "ms_chain_tables_amortized": cuda_ms_amortized(kernel_c)}
+    ms_f64 = cuda_ms_amortized(lambda: cv.render_blocks_cuda(*args64, **st))
+    plain_ms_f64 = cuda_ms(lambda: cv.render_blocks_plain(*args64, **st), reps=3)
+    bound64 = cv.kernel_bound(args64[0], args64[1], n_channels=2, **st)
     plain_ms = cuda_ms(lambda: cv.render_blocks_plain(*cargs, **cst), reps=3)
     bound = cv.kernel_bound(cargs[0], cargs[1], n_channels=2, **cst)
     if cv.kernel_bound(args[0], args[1], n_channels=2, **st)[
@@ -399,9 +453,15 @@ def phase_kernel_vs_plain() -> dict:
           + ", ".join(f"{bound['bound_ms'] / t:.3f} by {k}" for k, t in times.items())
           + f"; {live / times['ms_amortized'] / 1e6:.2f} G live voice-samples/s "
           "at (a) amortized")
+    print(f"[kernel] (d) float64 at the dense headline tables: {ms_f64:.4f} ms "
+          f"amortized; plain {plain_ms_f64:.4f} ms; bound {bound64['bound_ms']:.5f} ms "
+          f"by {bound64['bound_by']} ({bound64['flops']} FP64 flops, "
+          f"{bound64['bytes']} bytes), share {bound64['bound_ms'] / ms_f64:.3f}")
     return {"max_abs_err": err, **times, "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": None, "live_voice_samples": live}
+            "library_ms": None, "live_voice_samples": live,
+            "max_abs_err_f64": err64, "ms_f64": ms_f64, "plain_ms_f64": plain_ms_f64,
+            "bound_f64": bound64["bound_ms"], "bound_f64_by": bound64["bound_by"]}
 
 
 def _chain_inputs(n, sch, cfg, dtype="float32"):
@@ -580,6 +640,7 @@ def phase_device_chain(card: str, dtype: str = "float32") -> int:
             launches = cv.LAUNCHES
             syncs = tdt.HOST_SYNCS - syncs
     wall = statistics.median(walls)
+    CHAIN_WALLS[dtype] = wall
     peak_r, peak_v = _check_chain_result(res, launches)
     print(f"[{tag}] tracker={res.tracker} n_frames={res.n_frames} "
           f"dropped={int(res.dropped)} resynth {tuple(res.resynth.shape)} "
@@ -624,9 +685,9 @@ def phase_device_chain(card: str, dtype: str = "float32") -> int:
     return launches
 
 
-def _reported_syncs(run) -> str:
-    """Diagnostic: the synchronising CUDA calls torch's sync debug mode
-    reports over one run, with the lines that made them (the explicit
+def _sync_hits(run) -> tuple[int, str]:
+    """The synchronising CUDA calls torch's sync debug mode reports over one
+    run: their count, and the lines that made them (the explicit
     torch.cuda.synchronize that ends a run is not among them)."""
     import warnings
 
@@ -641,7 +702,13 @@ def _reported_syncs(run) -> str:
             torch.cuda.set_sync_debug_mode("default")
     hits = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
     where = sorted({str(w.filename).rsplit("/", 1)[-1] + f":{w.lineno}" for w in hits})
-    return f"{len(hits)} ({', '.join(where) or 'none'})"
+    return len(hits), ", ".join(where) or "none"
+
+
+def _reported_syncs(run) -> str:
+    """Diagnostic: _sync_hits as "count (lines)"."""
+    count, where = _sync_hits(run)
+    return f"{count} ({where})"
 
 
 def _dispatched_ops(run) -> int:
@@ -1190,6 +1257,7 @@ def phase_live(card: str) -> dict:
         t_pull, bank, n_notes = legs[key]
         args, stat = voicebank.prepare_bank_arrays(bank, LIVE_BLOCK, LIVE_BLOCK,
                                                    device="cuda")
+        args = cv.one_job(args)
         err = max(err, _hold(f"(d) live pull ({key}) at t0 = {t_pull} "
                              f"({t_pull / SR:.2f} s), {int(n_notes)} notes, press min "
                              f"{int(bank.press.min())}", args, stat))
@@ -1197,7 +1265,7 @@ def phase_live(card: str) -> dict:
         ms_call = cuda_ms(lambda: cv.render_blocks_cuda(*args, **stat))
         bound = cv.kernel_bound(args[0], args[1], n_channels=2, **stat)
         times[key] = (ms, bound["bound_ms"])
-        print(f"[live kernel] {key} pull ({args[0].shape[0]}, 8) x {LIVE_BLOCK}: "
+        print(f"[live kernel] {key} pull {tuple(args[0].shape)} x {LIVE_BLOCK}: "
               f"{ms:.5f} ms amortized, {ms_call:.5f} ms per synchronised call; bound "
               f"{bound['bound_ms']:.6f} ms by {bound['bound_by']} "
               f"({bound['live_voice_samples']} live voice-samples, {bound['bytes']} "
@@ -2069,7 +2137,7 @@ def phase_tune(card: str) -> dict:
 
     # (b) the kernel against its plain version on the busiest segment's
     # eased tables
-    seg_args, seg_stat = max(probe.tables, key=lambda t: t[0][0].shape[0])
+    seg_args, seg_stat = max(probe.tables, key=lambda t: t[0][0].shape[1])
     codes = set(seg_args[4].flatten().tolist())
     if int(Itp.EASE_OUT_CUBIC) not in codes:
         raise RuntimeError(f"(12b): the tune tables carry no eased curve ({codes})")
@@ -2077,7 +2145,7 @@ def phase_tune(card: str) -> dict:
     ms = cuda_ms_amortized(lambda: cv.render_blocks_cuda(*seg_args, **seg_stat))
     plain_ms = cuda_ms(lambda: cv.render_blocks_plain(*seg_args, **seg_stat), reps=3)
     bound = cv.kernel_bound(seg_args[0], seg_args[1], n_channels=2, **seg_stat)
-    print(f"[tune] (b) kernel on ({seg_args[0].shape[0]}, 8) x {seg_stat['n_blocks']} blocks "
+    print(f"[tune] (b) kernel on {tuple(seg_args[0].shape)} x {seg_stat['n_blocks']} blocks "
           f"of {seg_stat['block_size']}: {ms:.5f} ms amortized, plain {plain_ms:.3f} ms; "
           f"bound {bound['bound_ms']:.6f} ms by {bound['bound_by']} "
           f"({bound['live_voice_samples']} live voice-samples {bound['segments']}, "
@@ -2818,8 +2886,8 @@ def phase_mesh(card: str) -> dict:
 
         args, st = voicebank.prepare_bank_arrays(bank, n, B, device="cuda")
         off_st = dict(block_size=B, n_blocks=st["n_blocks"] - 3, block_offset=3)
-        k_out = cv.render_blocks_cuda(*args, **off_st)
-        p_out = cv.render_blocks_plain(*args, **off_st)
+        k_out = cv.render_blocks_cuda(*cv.one_job(args), **off_st)[0]
+        p_out = cv.render_blocks_plain(*cv.one_job(args), **off_st)[0]
         torch.cuda.synchronize()
         err_off = float((k_out - p_out).abs().max())
         # the same launch geometry from block 3 on: equal to the bit
@@ -2996,21 +3064,27 @@ def rank_tracker_table() -> dict:
 def _recorded_tables():
     """Context: every device_tracker.build_tables_device call (the chains',
     the fidelity tracker's through build_tables_device_df, resynthesize's,
-    the mesh's) appends its (table, dropped) to the yielded list."""
+    the mesh's) and build_tables_device_batch call (the batched serving
+    step's) appends its (table, dropped) to the yielded list."""
     from cpp_audio_tpu_torch.analysis import device_tracker as tdt
 
-    plain, calls = tdt.build_tables_device, []
+    names = ("build_tables_device", "build_tables_device_batch")
+    plain, calls = {name: getattr(tdt, name) for name in names}, []
 
-    def build(*a, **k):
-        out = plain(*a, **k)
-        calls.append(out)
-        return out
+    def recording(fn):
+        def build(*a, **k):
+            out = fn(*a, **k)
+            calls.append(out)
+            return out
+        return build
 
-    tdt.build_tables_device = build
+    for name in names:
+        setattr(tdt, name, recording(plain[name]))
     try:
         yield calls
     finally:
-        tdt.build_tables_device = plain
+        for name in names:
+            setattr(tdt, name, plain[name])
 
 
 def _repeat(tag, run, needs_kernel: bool) -> int:
@@ -3029,7 +3103,8 @@ def _repeat(tag, run, needs_kernel: bool) -> int:
         with _recorded_tables() as calls:
             outs = [torch.as_tensor(o) for o in run()]
             torch.cuda.synchronize()
-        runs.append((outs, [t for t, _ in calls], [int(d) for _, d in calls]))
+        runs.append((outs, [t for t, _ in calls],
+                     [torch.as_tensor(d).tolist() for _, d in calls]))
     launches = cv.LAUNCHES
     outs0, tables0, dropped0 = runs[0]
     diff = max(float((a.to(b.device) - b).abs().max()) if a.numel() else 0.0
@@ -3096,6 +3171,11 @@ def phase_repro(card: str) -> dict:
     _repeat(f"J1 offline_job.run_job, {SECONDS:.0f} s",
             lambda: (oj.run_job(job, device="cuda"),), needs_kernel=False)
 
+    step, _ = serving_step(SERVE_SEEDS, n)
+    _repeat(f"prepare_offline_chain_device_batch step() at B = {len(SERVE_SEEDS)}, "
+            f"{SECONDS:.0f} s", step, needs_kernel=True)
+    del step
+
     bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
     os.makedirs(MESH_DIR, exist_ok=True)
     store = os.path.abspath(os.path.join(MESH_DIR, "repro_store"))
@@ -3111,6 +3191,372 @@ def phase_repro(card: str) -> dict:
     finally:
         dist.destroy_process_group()
     return out
+
+
+SERVE_SEEDS = list(range(42, 58))  # phase 16 (a): 16 jobs of the headline
+SERVE_F64_SEEDS = [42, 43]         # (a): the float64 batch
+BREADTH_SEEDS = [42, 43, 44, 45]   # (b): each configuration's batch of 4
+# a batch's job against run_offline_chain_device on its bank: resynth and
+# vocoded max|diff| over the single chain's peak
+# (tests/test_torch_chain_device.py:test_batch_matches_single)
+SERVE_BARS = (1e-3, 3e-3)
+
+
+def serving_step(seeds, n, dtype="float32", n_voices=64, **rcfg_kw):
+    """prepare_offline_chain_device_batch over make_synth_workload's banks
+    at `seeds` (block 2^18, the 110 Hz square carrier shared, the chain's
+    config at `dtype` with `rcfg_kw`), staged on cuda. Returns (run: step()
+    ending in torch.cuda.synchronize, returning (stereo, vocoded, dropped);
+    (banks, rcfg, vparams, carrier): the single chains' arguments)."""
+    import dataclasses
+
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import chain
+    from cpp_audio_tpu_torch.models import sine_synth
+
+    banks = []
+    for seed in seeds:
+        sch, cfg = make_synth_workload(SR, n, seed=seed, n_voices=n_voices)
+        banks.append(sine_synth.bank_from_schedule(sch, cfg))
+    _bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg, dtype)
+    rcfg = dataclasses.replace(rcfg, **rcfg_kw)
+    step, n_frames = chain.prepare_offline_chain_device_batch(
+        banks, n, rcfg, vparams, carrier, block_size=BENCH_BLOCK, device="cuda")
+    if n_frames != int((n - rcfg.window_size) // rcfg.stride + 1):
+        raise RuntimeError(f"(16) the batch reports {n_frames} analysis frames")
+
+    def run():
+        out = step()
+        torch.cuda.synchronize()
+        return out
+
+    return run, (banks, rcfg, vparams, carrier)
+
+
+def _instrumented(run) -> dict:
+    """One run ending in torch.cuda.synchronize, timed and counted: its
+    wall, output, voice-bank kernel launches (the count set to 0 just
+    before, read just after), the device tracker's host syncs, the
+    tracker's path (the frame-parallel tracker, or the exact frame loop,
+    device_tracker._scan_tables, run when the violation flag is set) and
+    the peak device memory above what was held before it."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+
+    plain, loops = tdt._scan_tables, []
+
+    def scan(*a, **k):
+        loops.append(1)
+        return plain(*a, **k)
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tdt._scan_tables = scan
+    syncs = tdt.HOST_SYNCS
+    cv.LAUNCHES = 0
+    try:
+        wall, out = _synced_wall(run)
+    finally:
+        tdt._scan_tables = plain
+    return {"wall": wall, "out": out, "launches": cv.LAUNCHES,
+            "syncs": tdt.HOST_SYNCS - syncs,
+            "path": f"exact frame loop ({len(loops)} tables)" if loops else "frame-parallel",
+            "peak": torch.cuda.max_memory_allocated() - held, "held": held}
+
+
+def _walls(run, reps=5) -> tuple[float, list, dict]:
+    """(the first call's wall, `reps` warm walls, the first warm run's
+    _instrumented record), each run ending in torch.cuda.synchronize."""
+    first, _ = _synced_wall(run)
+    counted = _instrumented(run)
+    walls = [counted.pop("wall")] + [_synced_wall(run)[0] for _ in range(reps - 1)]
+    return first, walls, counted
+
+
+def _memory(rec) -> str:
+    return (f"peak device memory {rec['peak'] / 2**30:.3f} GiB above "
+            f"{rec['held'] / 2**30:.3f} held")
+
+
+def _ms_list(walls) -> str:
+    return ", ".join(f"{w * 1e3:.3f}" for w in walls)
+
+
+def _hold_to_singles(tag, out, chain_args, n) -> str:
+    """Each job of a batched step's (stereo, vocoded, dropped) against
+    run_offline_chain_device on the same bank on cuda, at SERVE_BARS and
+    dropped equal; fails above a bar. Returns the worst ratios as text."""
+    from cpp_audio_tpu_torch.analysis import chain
+
+    stereo, voc, dropped = out
+    banks, rcfg, vparams, carrier = chain_args
+    worst_r = worst_v = 0.0
+    for j, bank in enumerate(banks):
+        one = chain.run_offline_chain_device(bank, n, rcfg, vparams, carrier,
+                                             block_size=BENCH_BLOCK, device="cuda")
+        peak_r = float(one.resynth.abs().max())
+        peak_v = float(one.vocoded.abs().max())
+        if stereo[j].shape != one.resynth.shape or voc[j].shape != one.vocoded.shape:
+            raise RuntimeError(f"(16) {tag}: job {j}'s shapes differ from its single chain's")
+        dr = float((stereo[j] - one.resynth).abs().max()) / max(peak_r, 1e-9)
+        dv = float((voc[j] - one.vocoded).abs().max()) / max(peak_v, 1e-9)
+        worst_r, worst_v = max(worst_r, dr), max(worst_v, dv)
+        if not (peak_r > 1e-3 and peak_v > 1e-3 and dr < SERVE_BARS[0]
+                and dv < SERVE_BARS[1] and int(dropped[j]) == int(one.dropped)):
+            raise RuntimeError(f"(16) {tag}: job {j} disagrees with its single chain: "
+                               f"resynth {dr:.3e}, vocoded {dv:.3e}, dropped "
+                               f"{int(dropped[j])} / {int(one.dropped)}")
+    return (f"resynth max|diff|/peak {worst_r:.3e} (bar {SERVE_BARS[0]}), vocoded "
+            f"{worst_v:.3e} (bar {SERVE_BARS[1]}), dropped equal, over "
+            f"{len(banks)} jobs")
+
+
+def _single_step_syncs(n) -> tuple[int, str]:
+    """The synchronising calls of one step() of prepare_offline_chain_device
+    on the headline (as phase 4 counts them), warm."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import chain
+
+    sch, cfg = make_synth_workload(SR, n)
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
+    step, _ = chain.prepare_offline_chain_device(bank, n, rcfg, vparams, carrier,
+                                                 block_size=cfg.block_size, device="cuda")
+
+    def run():
+        step()
+        torch.cuda.synchronize()
+
+    run()
+    return _sync_hits(run)
+
+
+def phase_serving(card: str) -> dict:
+    """Phase 16: (a) the batched serving step at width, (b) bench.py's
+    breadth configurations; returns the kernels-line keys it measures."""
+    measured = _serving_batch(card)
+    _serving_breadth(card)
+    _serving_reference()
+    return measured
+
+
+def _serving_batch(card: str) -> dict:
+    """(a): prepare_offline_chain_device_batch over SERVE_SEEDS' headline
+    jobs, float32, then over SERVE_F64_SEEDS in float64."""
+    import torch
+
+    from cpp_audio_tpu_torch.models import voicebank
+    from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+
+    n = int(SR * SECONDS)
+    B = len(SERVE_SEEDS)
+    run, chain_args = serving_step(SERVE_SEEDS, n)
+    first, walls, rec = _walls(run)
+    wall = statistics.median(walls)
+    launches, syncs = rec["launches"], rec["syncs"]
+    stereo, voc, dropped = out = rec.pop("out")
+    n_sync, where = _sync_hits(run)
+    n_sync_single, where_single = _single_step_syncs(n)
+    single = CHAIN_WALLS.get("float32")
+    print(f"[serving] batch of {B} (seeds {SERVE_SEEDS[0]}-{SERVE_SEEDS[-1]}, 64 voices, "
+          f"{SECONDS:.0f} s, block 2^18, float32): stereo {tuple(stereo.shape)}, vocoded "
+          f"{tuple(voc.shape)}, dropped {dropped.tolist()}; first step() {first:.3f} s; "
+          f"warm median {wall * 1e3:.3f} ms of 5 ({_ms_list(walls)} ms), "
+          f"{wall / B * 1e3:.3f} ms per job against run_offline_chain_device's "
+          + (f"{single * 1e3:.3f} ms (phase 4)" if single else "(phase 4 not run)")
+          + f"; {B * SECONDS / wall:.1f}x realtime aggregate on {card}")
+    print(f"[serving] per step(): kernel launches {launches}; tracker host syncs "
+          f"{syncs}, path {rec['path']}; synchronising calls (sync debug mode) {n_sync} "
+          f"({where}) against a single chain's step() {n_sync_single} ({where_single}); "
+          f"{_memory(rec)}")
+    if launches != 1 or syncs != 1 or n_sync > n_sync_single:
+        raise RuntimeError(f"(16a) {launches} kernel launches, {syncs} tracker syncs, "
+                           f"{n_sync} synchronising calls (single step: {n_sync_single}) "
+                           "per step; expected 1, 1 and no more than a single step")
+    if not (bool(torch.isfinite(stereo).all()) and bool(torch.isfinite(voc).all())
+            and stereo.shape[0] == B and stereo.shape[2] == 2):
+        raise RuntimeError("(16a) batch output not finite or misshapen")
+    del out, stereo, voc
+
+    # the batched synth against each job's own launch (to the bit) and
+    # against the plain version; its time and bound
+    tables, st = voicebank.prepare_bank_arrays(chain_args[0], n, BENCH_BLOCK,
+                                               device="cuda")
+
+    def batched():
+        return cv.render_blocks_cuda(*tables, **st)
+
+    synth = batched()
+    bitwise = all(torch.equal(synth[j], cv.render_blocks_cuda(*(t[j:j + 1] for t in tables),
+                                                              **st)[0])
+                  for j in range(B))
+    plain = cv.render_blocks_plain(*tables, **st)
+    torch.cuda.synchronize()
+    err = float((synth - plain).abs().max())
+    del plain
+    ms_batch = cuda_ms_amortized(batched, reps=10)
+    bound = cv.kernel_bound(tables[0], tables[1], n_channels=2, **st)
+    print(f"[serving] kernel, one launch at {tuple(tables[0].shape)} x {st['n_blocks']} "
+          f"blocks of 2^18: each job's slice equal to the bit to its own launch: "
+          f"{bitwise}; max|kernel-plain| {err:.3e} (bar {KERNEL_BAR}); "
+          f"{ms_batch:.4f} ms amortized; bound {bound['bound_ms']:.5f} ms by "
+          f"{bound['bound_by']} ({bound['live_voice_samples']} live voice-samples), "
+          f"share {bound['bound_ms'] / ms_batch:.3f}")
+    if not (bitwise and err <= KERNEL_BAR):
+        raise RuntimeError("(16a) the batched launch differs from the jobs' own launches "
+                           "or from the plain version")
+    del synth, tables
+    print(f"[serving] float32 batch against the single chains: "
+          f"{_hold_to_singles('float32 batch', run(), chain_args, n)}")
+    _profile_run(run, tag="serving ")
+    del run, chain_args
+
+    run64, args64 = serving_step(SERVE_F64_SEEDS, n, "float64")
+    first64, walls64, rec64 = _walls(run64, reps=2)
+    out64 = rec64.pop("out")
+    print(f"[serving] float64 batch of {len(SERVE_F64_SEEDS)}: stereo "
+          f"{tuple(out64[0].shape)} {out64[0].dtype}; first {first64:.3f} s, warm "
+          f"{_ms_list(walls64)} ms; launches {rec64['launches']}, tracker path "
+          f"{rec64['path']}, {_memory(rec64)}; against the float64 single chains: "
+          f"{_hold_to_singles('float64 batch', out64, args64, n)}")
+    if out64[0].dtype != torch.float64 or rec64["launches"] != 1:
+        raise RuntimeError("(16a) the float64 batch is not float64 or not one launch")
+    del out64
+    # its synth: the kernel's float64 instantiation, each job's slice
+    # against the job's own launch and the plain version
+    t64, st64 = voicebank.prepare_bank_arrays(args64[0], n, BENCH_BLOCK, "float64",
+                                              device="cuda")
+    synth64 = cv.render_blocks_cuda(*t64, **st64)
+    bitwise64 = all(torch.equal(synth64[j], cv.render_blocks_cuda(
+        *(t[j:j + 1] for t in t64), **st64)[0]) for j in range(len(SERVE_F64_SEEDS)))
+    err64 = float((synth64 - cv.render_blocks_plain(*t64, **st64)).abs().max())
+    print(f"[serving] float64 batch's synth {tuple(synth64.shape)} {synth64.dtype}: each "
+          f"job's slice equal to the bit to its own launch: {bitwise64}; "
+          f"max|kernel-plain| {err64:.3e} (bar {KERNEL_BAR_F64})")
+    if not (bitwise64 and synth64.dtype == torch.float64 and err64 <= KERNEL_BAR_F64):
+        raise RuntimeError("(16a) the float64 batch's synth differs from its jobs' "
+                           "launches or from the plain version")
+    return {"launches_batch": launches, "ms_batch": ms_batch,
+            "bound_batch": bound["bound_ms"], "bound_batch_by": bound["bound_by"],
+            "max_abs_err_batch": err}
+
+
+def _breadth_configs():
+    """bench.py's breadth rows and the merged harmonize: (tag, n_voices,
+    the chain config's keywords)."""
+    from cpp_audio_tpu_torch.analysis import autotune as at
+
+    return (("127 voices", 127, {}),
+            ("autotune MUSICAL_SCALE", 64, dict(
+                use_autotune=True,
+                autotune_kwargs=dict(autotune_type=at.AutotuneType.MUSICAL_SCALE))),
+            ("harmonize pre 7 + post 12, merged", 64, dict(
+                pitch_harmonize_pre_autotune=7.0, pitch_harmonize_post_autotune=12.0,
+                harmonize_semantics="merged")))
+
+
+def _serving_breadth(card: str) -> None:
+    """(b): each breadth configuration through run_offline_chain_device at
+    the headline width (seed 42), then as a batch of BREADTH_SEEDS held
+    against its single chains."""
+    import dataclasses
+
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import chain
+
+    n = int(SR * SECONDS)
+    for tag, n_voices, kw in _breadth_configs():
+        sch, cfg = make_synth_workload(SR, n, n_voices=n_voices)
+        bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
+        rcfg = dataclasses.replace(rcfg, **kw)
+
+        def run(bank=bank, rcfg=rcfg, vparams=vparams, carrier=carrier):
+            res = chain.run_offline_chain_device(bank, n, rcfg, vparams, carrier,
+                                                 block_size=cfg.block_size, device="cuda")
+            torch.cuda.synchronize()
+            return res
+
+        first, walls, rec = _walls(run)
+        res = rec.pop("out")
+        _check_chain_result(res, rec["launches"])
+        wall = statistics.median(walls)
+        print(f"[breadth] {tag}: run_offline_chain_device at {SECONDS:.0f} s, "
+              f"{n_voices} voices: first {first:.3f} s, warm median {wall * 1e3:.3f} ms "
+              f"of 5 ({_ms_list(walls)} ms), {SECONDS / wall:.1f}x realtime on {card}; "
+              f"launches {rec['launches']}; tracker path {rec['path']}; dropped "
+              f"{int(res.dropped)}; {_memory(rec)}")
+        if rec["launches"] != 1:
+            raise RuntimeError(f"(16b) {tag}: {rec['launches']} kernel launches, expected 1")
+        del res
+        # the batch: one call (its first), timed and counted
+        brun, bargs = serving_step(BREADTH_SEEDS, n, n_voices=n_voices, **kw)
+        brec = _instrumented(brun)
+        print(f"[breadth] {tag}: batch of {len(BREADTH_SEEDS)} (seeds "
+              f"{BREADTH_SEEDS[0]}-{BREADTH_SEEDS[-1]}): first step() {brec['wall']:.3f} s, "
+              f"launches {brec['launches']}, tracker path {brec['path']}, "
+              f"{_memory(brec)}; against the single chains: "
+              f"{_hold_to_singles(tag, brec['out'], bargs, n)}")
+        if brec["launches"] != 1:
+            raise RuntimeError(f"(16b) {tag}: the batch made {brec['launches']} kernel launches")
+        del brec, brun
+
+
+def _serving_reference() -> None:
+    """(b)'s configurations on 2 s workloads, cuda against the CPU at phase
+    6's bars (vocoded atol 1e-4, resynth max|diff|/peak < 2e-3, dropped and
+    frame counts equal), over the whole chain in float64: 127 voices
+    (make_synth_workload, seed 7) and the merged harmonize (tests/
+    test_chain.py's workload). The same chains in float32 are read and
+    printed without a bar: there the card's and the CPU's float32 peaks
+    differ in their last bits, and which of two peaks a bin apart survives,
+    or which note a peak continues, can differ between the devices (at 127
+    voices the float32 chain on one CPU differs from its float64 chain by
+    7e-2 of the peak). Autotune MUSICAL_SCALE, as phase 6, on the JAX
+    autotune test's signal through resynthesize's device path."""
+    import dataclasses
+
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import chain, resynth
+
+    n = 2 * SR
+    configs = {tag: kw for tag, _n_voices, kw in _breadth_configs()}
+    cases = (("127 voices", make_synth_workload(SR, n, seed=7, n_voices=127)),
+             ("harmonize pre 7 + post 12, merged", make_chain_test_workload(SR, n)))
+    for tag, (sch, cfg) in cases:
+        for dtype in ("float64", "float32"):
+            bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg, dtype)
+            rcfg = dataclasses.replace(rcfg, **configs[tag])
+            g, c = (chain.run_offline_chain_device(bank, n, rcfg, vparams, carrier,
+                                                   block_size=1 << 13, device=dev)
+                    for dev in ("cuda", "cpu"))
+            dv = float((g.vocoded.cpu() - c.vocoded).abs().max())
+            peak = max(float(c.resynth.abs().max()), 1e-9)
+            dr = float((g.resynth.cpu() - c.resynth).abs().max()) / peak
+            drop = (int(g.dropped), int(c.dropped))
+            print(f"[breadth reference] {tag}, 2 s, {dtype}, whole chain cuda vs the CPU: "
+                  f"vocoded max|diff| {dv:.3e}, resynth max|diff|/peak {dr:.3e} (peak "
+                  f"{peak:.4f}), dropped {drop[0]} / {drop[1]}"
+                  + ("" if dtype == "float64" else " (a reading, no bar)"))
+            if g.resynth.dtype != getattr(torch, dtype):
+                raise RuntimeError(f"(16b) {tag}: the {dtype} chain returned "
+                                   f"{g.resynth.dtype}")
+            if dtype == "float64":
+                if not (dv <= 1e-4 and g.n_frames == c.n_frames and drop[0] == drop[1]):
+                    raise RuntimeError(f"(16b) {tag}: the cuda chain disagrees with the CPU")
+                _hold_resynth(f"{tag}, 2 s, float64", "the CPU", g.resynth, c.resynth)
+    sig = autotune_test_signal(SR)
+    _bank, rcfg, _vp, _car = _chain_inputs(n, *make_chain_test_workload(SR, n))
+    acfg = dataclasses.replace(rcfg, seed=5, **configs["autotune MUSICAL_SCALE"])
+    g, c = (resynth.resynthesize(sig, acfg, implementation="device", device_out=True,
+                                 device=dev) for dev in ("cuda", "cpu"))
+    n_o = min(g.shape[0], c.shape[0])
+    _hold_resynth("autotune MUSICAL_SCALE, 2 s signal", "cpu device path", g[:n_o], c[:n_o])
 
 
 def main() -> int:
@@ -3143,6 +3589,7 @@ def main() -> int:
         measured.update(phase_procedural(card))
         measured.update(phase_mesh(card))
         measured.update(phase_repro(card))
+        measured.update(phase_serving(card))
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

@@ -92,7 +92,7 @@ def _synth_dtype(rconfig) -> str:
     return "float32" if rconfig.dtype == "df32" else rconfig.dtype
 
 
-def _stage_analyze_vocode(bank: voicebank.VoiceBank, n_samples: int,
+def _stage_analyze_vocode(bank, n_samples: int,
                           rconfig: resynth_mod.ResynthConfig,
                           vparams: vocoder_mod.VocoderParams, carrier,
                           block_size: int, dev, mod_mode=None):
@@ -100,7 +100,9 @@ def _stage_analyze_vocode(bank: voicebank.VoiceBank, n_samples: int,
     static keywords: (bank_args, av_args, av_kw) for
     `_fused_analyze_vocode(*bank_args, *av_args, **av_kw)`, or for
     `_fused_analyze_vocode_df` when rconfig.dtype is "df32". mod_mode: the
-    vocoder's modulator path (vocoder._modulator_band_amps_fast's mode)."""
+    vocoder's modulator path (vocoder._modulator_band_amps_fast's mode).
+    `bank` may be a list of VoiceBanks: a batch of jobs, every voice table
+    with a leading job axis (voicebank.prepare_bank_arrays)."""
     bank_args, statics = voicebank.prepare_bank_arrays(
         bank, n_samples, block_size, _synth_dtype(rconfig), device=dev)
     av_args, av_kw = _analyze_vocode_inputs(n_samples, rconfig, vparams,
@@ -155,11 +157,12 @@ def _analyze_vocode_inputs(n_samples: int, rconfig: resynth_mod.ResynthConfig,
 def _synth_mono(fp, ip, up, gains, codes, *, n: int, block_size: int,
                 n_blocks: int) -> torch.Tensor:
     """Synth render (dense tables: the kernel picks each tile's live rows
-    itself) -> mono mixdown of its first n samples."""
+    itself) -> mono mixdown of its first n samples, (n,); tables with a
+    leading job axis render every job in one launch -> (B, n)."""
     out = voicebank.voicebank_blocks_impl(fp, ip, up, gains, codes,
                                           block_size=block_size,
                                           n_blocks=n_blocks)
-    return out.reshape(-1, out.shape[-1])[:n].sum(dim=1)
+    return out.reshape(*out.shape[:-3], -1, out.shape[-1])[..., :n, :].sum(dim=-1)
 
 
 def _vocode_mix(mono, carrier, bm_car, rows, *, sample_rate: int,
@@ -168,16 +171,17 @@ def _vocode_mix(mono, carrier, bm_car, rows, *, sample_rate: int,
                 vol_voc: float, edges: tuple, mod_mode=None,
                 mod_shape: str = "gaussian"):
     """The vocoder of the mixdown against the carrier, mixed with both;
-    mod_mode selects the modulator path (None: "decimated")."""
+    mod_mode selects the modulator path (None: "decimated"). A batch: mono
+    (B, n) against a per-job (B, n) or a shared (n,) carrier -> (B, m)."""
     amps = vocoder_mod._modulator_band_amps_fast(
         mono, edges, window=mod_window, stride=voc_stride,
         n_frames=n_mod_frames, sample_rate=sample_rate, mode=mod_mode,
         shape=mod_shape)
-    vocoded = vocoder_mod._carrier_vocode(carrier, amps[rows], bm_car,
+    vocoded = vocoder_mod._carrier_vocode(carrier, amps[..., rows, :], bm_car,
                                           stride=voc_stride, fft_len=car_fft)
-    out_len = vocoded.shape[0]
-    return (vol_voc * vocoded + vol_mod * mono[:out_len]
-            + vol_car * carrier[:out_len])
+    out_len = vocoded.shape[-1]
+    return (vol_voc * vocoded + vol_mod * mono[..., :out_len]
+            + vol_car * carrier[..., :out_len])
 
 
 def _fused_analyze_vocode(fp, ip, up, gains, codes, window, carrier, bm_car,
@@ -186,7 +190,9 @@ def _fused_analyze_vocode(fp, ip, up, gains, codes, window, carrier, bm_car,
                           stage=_no_stage, **voc_kw):
     """Synth -> mono mixdown -> STFT top-k peaks, and the vocoder of the
     mixdown (JAX chain.py:46-95). Returns (freq, mag_db, vocoder mix);
-    `stage` marks "synth", "analysis" and "vocoder"."""
+    `stage` marks "synth", "analysis" and "vocoder". Tables with a leading
+    job axis run B jobs as one batch: one kernel launch, one batched STFT
+    and top-k, one batched vocoder -> (B, F, k) peaks and (B, m) mixes."""
     mono = _synth_mono(fp, ip, up, gains, codes, n=n, block_size=block_size,
                        n_blocks=n_blocks)
     stage("synth")
@@ -548,10 +554,11 @@ def df32_chain_table(bank: voicebank.VoiceBank, n_samples: int,
 
 
 def assemble_framed_stereo(framed: torch.Tensor, start_sample: int) -> torch.Tensor:
-    """(F, S, C) framed render -> (start_sample + F*S, C): the flatten is a
-    view; only the leading-silence pad copies. (The JAX package's version
-    takes its channel-major (C, F, S) and returns (C, T) numpy.)"""
-    flat = framed.reshape(-1, framed.shape[-1])
+    """(F, S, C) framed render -> (start_sample + F*S, C), and a batch's
+    (B, F, S, C) -> (B, start_sample + F*S, C): the flatten is a view; only
+    the leading-silence pad copies. (The JAX package's version takes its
+    channel-major (C, F, S) and returns (C, T) numpy.)"""
+    flat = framed.reshape(*framed.shape[:-3], -1, framed.shape[-1])
     return torch.nn.functional.pad(flat, (0, 0, start_sample, 0))
 
 
@@ -629,12 +636,19 @@ def prepare_offline_chain_device_batch(banks, n_samples: int,
                                        draws=None, device="cuda"):
     """Batched serving: B independent jobs per step on `device`.
 
-    The same chain as prepare_offline_chain_device per job, with the
-    tracker batched (device_tracker.build_tables_device_batch: one
-    frame-local pass over every job's frames, the violation hoisted over
-    the batch). The JAX program's 64-slot render split and its lax.cond
-    (JAX chain.py:915-928) worked around conds under vmap; the port renders
-    each job's table whole. float32 or float64, as in the JAX package.
+    The chain of prepare_offline_chain_device, run once over the stacked
+    jobs, as the JAX program vmaps it (JAX chain.py:906-931): the jobs'
+    voice tables stack on a leading axis (equal voice counts, else a
+    ValueError naming the shapes), so a step makes one voice-bank kernel
+    launch for all jobs, one batched STFT and top-k, one batched vocoder
+    (its host-built kernel matrices staged once, not once per job), the
+    batched tracker (device_tracker.build_tables_device_batch: one
+    frame-local pass over every job's frames, the violation flag read once
+    for the batch) and one render pass per chunk of frames over every job
+    (resynth_bank._render_slots). The JAX program's 64-slot render split
+    and its lax.cond (JAX chain.py:915-928) worked around conds under
+    vmap; the port renders every slot. float32 or float64, as in the JAX
+    package.
 
     banks: list of VoiceBank (same n_samples/config per job).
     carrier: (n,) shared or (B, n) per-job.
@@ -644,31 +658,22 @@ def prepare_offline_chain_device_batch(banks, n_samples: int,
     if rconfig.dtype == "df32":
         raise ValueError("the batched chain runs float32 or float64")
     dev = torch.device(device)
-    jobs = [voicebank.prepare_bank_arrays(bank, n_samples, block_size,
-                                          rconfig.dtype, device=dev)
-            for bank in banks]
-    (window, carrier_dev, bm_car, rows), av_kw = _analyze_vocode_inputs(
-        n_samples, rconfig, vparams, carrier, dev)
-    if carrier_dev.dim() == 1:
-        carrier_dev = carrier_dev.expand(len(banks), -1)
+    bank_args, av_args, av_kw = _stage_analyze_vocode(
+        list(banks), n_samples, rconfig, vparams, carrier, block_size, dev)
+    carrier_dev = av_args[1]
+    if carrier_dev.dim() == 2 and carrier_dev.shape[0] != len(banks):
+        raise ValueError(f"{carrier_dev.shape[0]} carriers for {len(banks)} jobs")
     n_frames = _n_frames(n_samples, rconfig)
     rcfg = resynth_mod._render_config(rconfig)
     tracker_args, tr_kw = _tracker_inputs(rconfig, rcfg, n_frames, draws,
                                           dtype_of(rconfig.dtype), dev)
 
     def step():
-        outs = [_fused_analyze_vocode(*args, window, carrier_dev[b], bm_car,
-                                      rows, **statics, **av_kw)
-                for b, (args, statics) in enumerate(jobs)]
-        freq, mag, mix = (torch.stack(x) for x in zip(*outs))
+        freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, **av_kw)
         tables, dropped = device_tracker.build_tables_device_batch(
             freq, mag, *tracker_args, device=dev, **tr_kw)
-        stereo = torch.stack([
-            assemble_framed_stereo(
-                resynth_bank._render_slots(t, stride=rcfg.stride,
-                                           dtype=rconfig.dtype),
-                rcfg.start_sample)
-            for t in tables])
-        return stereo, mix, dropped
+        framed = resynth_bank._render_slots(tables, stride=rcfg.stride,
+                                            dtype=rconfig.dtype)
+        return assemble_framed_stereo(framed, rcfg.start_sample), mix, dropped
 
     return step, n_frames

@@ -147,7 +147,8 @@ def _windowed_gauss_energy_conv(dens, *, d: int, stride: int, window: int,
     f = d*j + i reads position j*S + (i*S)/d, so class i correlates dens
     with kernel k_i[l] = (1-a_i) g[l - q_i] + a_i g[l - q_i - 1] at output
     stride S, executed as a (rows, S) x (S, d*c) product plus c shifted
-    diagonal adds (same form as the JAX package)."""
+    diagonal adds (same form as the JAX package). dens (..., m): leading
+    axes are a batch, one product for all of it."""
     S = stride
     gd = _window_sq(window, shape)[::d]
     Lg = gd.shape[0]
@@ -173,22 +174,26 @@ def _windowed_gauss_energy_conv(dens, *, d: int, stride: int, window: int,
                            device=dens.device)
     rows = J + c - 1
     need = rows * S  # >= (J-1)*S + K; the extra taps are kernel zeros
-    m = dens.shape[0]
+    m = dens.shape[-1]
+    lead = dens.shape[:-1]
     if need > m:
         dens = torch.nn.functional.pad(dens, (0, need - m))
     else:
-        dens = dens[:need]
-    M = torch.einsum("rs,dcs->rdc", dens.reshape(rows, S), kmat)  # (rows, d, c)
-    out = M[0:J, :, 0]
+        dens = dens[..., :need]
+    M = torch.einsum("...rs,dcs->...rdc", dens.reshape(*lead, rows, S),
+                     kmat)  # (..., rows, d, c)
+    out = M[..., 0:J, :, 0]
     for cc in range(1, c):
-        out = out + M[cc:cc + J, :, cc]
-    return out.reshape(-1)[:n_frames]  # (J, d) interleave -> frames
+        out = out + M[..., cc:cc + J, :, cc]
+    return out.reshape(*lead, -1)[..., :n_frames]  # (J, d) interleave -> frames
 
 
 def _modulator_band_amps_fast(signal, edges, *, window: int, stride: int,
                               n_frames: int, sample_rate: int, mode=None,
                               shape: str = "gaussian"):
-    """O(n) band amplitudes over the whole signal -> (n_frames, n_bands).
+    """O(n) band amplitudes over the whole signal -> (n_frames, n_bands);
+    a (B, n) signal (a batch of jobs) -> (B, n_frames, n_bands), each FFT
+    and product batched over the jobs.
 
     edges: band-edge frequencies (host values). mode: "decimated" (default)
     or "full". shape: "gaussian" (the reference's window) or "rectangular".
@@ -211,11 +216,12 @@ def _modulator_band_amps_decimated(signal, *, edges, window: int, stride: int,
     and windowed sums come from a Gaussian correlation (or a cumsum read at
     interpolated stride positions for the rectangular window). See the JAX
     package's docstring for the error budget (<=0.4% RMS per band)."""
-    n = signal.shape[0]
+    n = signal.shape[-1]
+    lead = signal.shape[:-1]
     fdt = signal.dtype
     n_bands = len(edges) - 1
     if n_frames <= 0:
-        return signal.new_zeros((0, n_bands))
+        return signal.new_zeros((*lead, 0, n_bands))
     n_fft = 1
     while n_fft < n:
         n_fft *= 2
@@ -231,20 +237,20 @@ def _modulator_band_amps_decimated(signal, *, edges, window: int, stride: int,
 
     def ssb_energy(k_lo, k_hi):
         if k_hi < k_lo:
-            return signal.new_zeros((n_frames,))
+            return signal.new_zeros((*lead, n_frames))
         width = k_hi - k_lo + 1
         m = _MIN_SSB_M
         while m < width + guard_bins:
             m *= 2
         m = min(m, n_fft)
         d = n_fft // m
-        seg = X[k_lo:k_hi + 1]
+        seg = X[..., k_lo:k_hi + 1]
         if k_lo == 0 or k_hi == half:  # DC / Nyquist have no conjugate partner
             seg = seg.clone()
             if k_lo == 0:
-                seg[0] = seg[0] * 0.5
+                seg[..., 0] = seg[..., 0] * 0.5
             if k_hi == half:
-                seg[-1] = seg[-1] * 0.5
+                seg[..., -1] = seg[..., -1] * 0.5
         z = torch.fft.ifft(seg, n=m)
         dens = z.real ** 2 + z.imag ** 2
         live = torch.arange(m, device=signal.device) * d < n
@@ -261,7 +267,7 @@ def _modulator_band_amps_decimated(signal, *, edges, window: int, stride: int,
 
     band_e = torch.stack(
         [ssb_energy(*hz_bins(edges[b], edges[b + 1])) for b in range(n_bands)],
-        dim=-1)  # (n_frames, n_bands)
+        dim=-1)  # (..., n_frames, n_bands)
     return _amps_from_band_energy(band_e, window=window, shape=shape)
 
 
@@ -272,10 +278,10 @@ def _modulator_band_amps_full(signal, *, edges, window: int, stride: int,
     big FFT + bin mask + ifft per band pair — two real band signals per
     complex ifft), then windowed energy: a w^2 correlation (gaussian) or
     box sums from a cumsum (rectangular)."""
-    n = signal.shape[0]
+    n = signal.shape[-1]
     n_bands = len(edges) - 1
     if n_frames <= 0:
-        return signal.new_zeros((0, n_bands))
+        return signal.new_zeros((*signal.shape[:-1], 0, n_bands))
     n_fft = 1
     while n_fft < n:
         n_fft *= 2
@@ -294,7 +300,7 @@ def _modulator_band_amps_full(signal, *, edges, window: int, stride: int,
         else:
             z = torch.fft.ifft(X * mask_a)
             pair = (z.real,)
-        ys.extend(yy[:n] for yy in pair)
+        ys.extend(yy[..., :n] for yy in pair)
     if shape != "rectangular":
         band_e = torch.stack(
             [_windowed_gauss_energy_conv(y * y, d=1, stride=stride,
@@ -302,12 +308,12 @@ def _modulator_band_amps_full(signal, *, edges, window: int, stride: int,
                                          n_frames=n_frames) for y in ys],
             dim=-1)
         return _amps_from_band_energy(band_e, window=window, shape=shape)
-    y = torch.stack(ys, dim=0)
-    e = chunked_cumsum(y * y)  # (bands, n) inclusive
+    y = torch.stack(ys, dim=-2)
+    e = chunked_cumsum(y * y)  # (..., bands, n) inclusive
     # e[min(f*S + W, n-1)] - e[f*S]: the edge clamp of the JAX package
     starts = torch.arange(n_frames, device=signal.device) * stride
     ends = torch.clamp(starts + window, max=n - 1)
-    band_e = (e[:, ends] - e[:, starts]).T  # (n_frames, bands)
+    band_e = (e[..., ends] - e[..., starts]).transpose(-1, -2)  # (..., n_frames, bands)
     return _amps_from_band_energy(band_e, window=window, shape=shape)
 
 
@@ -338,26 +344,29 @@ def _carrier_vocode(carrier, band_amps, band_mat_full, *, stride: int,
     """Modulate carrier FFT frames by band amplitudes and overlap-crossfade.
 
     Returns the vocoded signal of length n_frames*stride (frame r covers
-    output samples [r*stride, (r+1)*stride)).
+    output samples [r*stride, (r+1)*stride)). A batch: band_amps (B,
+    frames, bands) against a per-job carrier (B, n) or one shared (n,)
+    carrier (its frames transformed once) -> (B, n_frames*stride).
     """
     window = 2 * stride
-    n = carrier.shape[0]
+    n = carrier.shape[-1]
     n_frames = max(0, (n - window) // stride + 1)
     frames = stft_ops.frame_signal(carrier, window, stride, n_frames)
     # per-bin gain from that frame's band amplitudes (modulate_bands); full
     # float32 (band_mat_full is 0/1, so the product is exact)
-    gains = band_amps @ band_mat_full.T  # (frames, bins)
+    gains = band_amps @ band_mat_full.T  # (..., frames, bins)
     spec = torch.fft.rfft(frames, n=fft_len)
-    sig = torch.fft.irfft(spec * gains, n=fft_len)[:, :window]
+    sig = torch.fft.irfft(spec * gains, n=fft_len)[..., :window]
     # LINEAR equal-gain crossfade of the first half of frame r with the
     # second half of frame r-1 (vocoder.cpp:538-541): step i = k+1 of the
     # new frame weighs (k+1)/stride
     k = torch.arange(stride, dtype=sig.dtype, device=sig.device)
     w_new = (k + 1.0) / stride
     w_old = 1.0 - w_new
-    new_part = sig[:, :stride]
-    old_part = torch.cat([sig.new_zeros((1, stride)), sig[:-1, stride:]], dim=0)
-    return (new_part * w_new[None, :] + old_part * w_old[None, :]).reshape(-1)
+    new_part = sig[..., :stride]
+    old_part = torch.cat([sig.new_zeros((*sig.shape[:-2], 1, stride)),
+                          sig[..., :-1, stride:]], dim=-2)
+    return (new_part * w_new + old_part * w_old).reshape(*sig.shape[:-2], -1)
 
 
 def modulator_alignment_rows(n: int, params: VocoderParams, n_mod_frames: int):

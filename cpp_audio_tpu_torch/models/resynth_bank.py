@@ -41,9 +41,14 @@ from ..device import dtype_of
 from ..ops import envelopes, oscillators
 from ..utils.interp import Itp
 
-# elements per (frames, slots, stride) intermediate in one render chunk:
-# 2^24 f32 = 64 MB, a dozen intermediates live at once
+# elements per (frames, slots, stride) intermediate of one job in one render
+# chunk: 2^24 f32 = 64 MB, a dozen intermediates live at once
 _RENDER_CHUNK_ELEMS = 1 << 24
+# a batch's chunk spans every job: one job's frames per chunk, so a batch of
+# B makes as many passes as one job, up to 16 jobs' worth of elements per
+# intermediate (2^28 f32 = 1 GiB, ~12 GiB live at once); larger batches
+# take fewer frames per chunk
+_RENDER_BATCH_CHUNK_ELEMS = 1 << 28
 
 NEVER_FRAME = 10**9
 # packed per-(frame, slot) field order
@@ -241,10 +246,12 @@ def _phase_trajectory(inc, ratio, phb, k1, S: int):
 def _render_slots(table: torch.Tensor, *, stride: int,
                   dtype: str) -> torch.Tensor:
     """(n_frames, P, 16 or 17) -> (n_frames, stride, 2) stereo, float32 or
-    float64.
+    float64. A batch of jobs' tables, (B, n_frames, P, fields), renders to
+    (B, n_frames, stride, 2), every job in each pass.
 
     One (frames, P, stride) tile per chunk of frames; the chunk is sized so
-    each intermediate stays near _RENDER_CHUNK_ELEMS elements.
+    each intermediate stays near _RENDER_CHUNK_ELEMS elements per job, and
+    a batch's within _RENDER_BATCH_CHUNK_ELEMS.
 
     A 17-field table (the fidelity chain's, analysis/device_tracker
     build_tables_device_df) carries the rest of the row increment in field
@@ -256,29 +263,33 @@ def _render_slots(table: torch.Tensor, *, stride: int,
     lane layout that the TPU needed). A float64 render adds field 16 to
     field 0, as JAX does (:341-342).
     """
-    if table.shape[2] not in (N_FIELDS, N_FIELDS_DF):
+    if table.dim() not in (3, 4) or table.shape[-1] not in (N_FIELDS, N_FIELDS_DF):
         raise ValueError(f"expected a {N_FIELDS}- or {N_FIELDS_DF}-field slot "
-                         f"table, got {table.shape[2]} fields")
-    df_phase = table.shape[2] == N_FIELDS_DF
+                         "table (frames, slots, fields), or a batch of them, "
+                         f"got {tuple(table.shape)}")
+    df_phase = table.shape[-1] == N_FIELDS_DF
     wdt = dtype_of(dtype)
     f64 = torch.float64
-    n, P = table.shape[0], table.shape[1]
+    lead = table.shape[:-3]  # (B,) for a batch
+    n, P = table.shape[-3], table.shape[-2]
     S = stride
     chunk = max(1, _RENDER_CHUNK_ELEMS // max(1, P * S))
+    if lead:
+        chunk = max(1, min(chunk, _RENDER_BATCH_CHUNK_ELEMS // max(1, lead[0] * P * S)))
     k1 = torch.arange(1, S + 1, dtype=wdt, device=table.device)  # k + 1
     k1_64 = torch.arange(1, S + 1, dtype=f64, device=table.device)
-    out = torch.empty((n, S, 2), dtype=wdt, device=table.device)
+    out = torch.empty((*lead, n, S, 2), dtype=wdt, device=table.device)
     for f0 in range(0, n, chunk):
-        tab = table[f0:f0 + chunk].to(wdt)
-        col = lambda i: tab[:, :, i:i + 1]  # (F, P, 1)
+        tab = table[..., f0:f0 + chunk, :, :].to(wdt)
+        col = lambda i: tab[..., i:i + 1]  # (.., F, P, 1)
         (incf, ratio, phb, vtgt, vb, alpha, tp0, tr0, top, A, H, D, sus, R) = (
             col(i) for i in range(14))
-        gains = tab[:, :, _F_GL:_F_GR + 1]
+        gains = tab[..., _F_GL:_F_GR + 1]
 
         lam = ratio / S
         if df_phase:
-            t64 = table[f0:f0 + chunk].to(f64)
-            c64 = lambda i: t64[:, :, i:i + 1]  # noqa: E731
+            t64 = table[..., f0:f0 + chunk, :, :].to(f64)
+            c64 = lambda i: t64[..., i:i + 1]  # noqa: E731
             inc64 = c64(_F_INC) + c64(_F_INC_LO)
             phases = _phase_trajectory(inc64, c64(_F_RATIO), c64(_F_PHB),
                                        k1_64, S).to(wdt)
@@ -301,7 +312,8 @@ def _render_slots(table: torch.Tensor, *, stride: int,
         mid_inc = incf * torch.exp(lam * (S * 0.5))
         aliasing = oscillators.freq_aliasing_multiplicator(mid_inc)
         sig = vol * env * aliasing * oscillators.sine(phases)
-        out[f0:f0 + chunk] = torch.einsum("fps,fpc->fsc", sig, gains)
+        out[..., f0:f0 + chunk, :, :] = torch.einsum("...fps,...fpc->...fsc",
+                                                     sig, gains)
     return out
 
 

@@ -143,16 +143,35 @@ def _host_bank_arrays(bank: VoiceBank, dtype: str):
     return fp, ip, up, gains, codes3
 
 
-def prepare_bank_arrays(bank: VoiceBank, n_samples: int, block_size: int,
+def _stack_jobs(banks, dtype: str):
+    """Each bank's host arrays stacked on a leading job axis, as the JAX
+    package stacks a batch's (np.stack, JAX chain.py:845-851): the jobs
+    must agree on the voice count and the gain channels."""
+    per_job = [_host_bank_arrays(b, dtype) for b in banks]
+    if not per_job:
+        raise ValueError("a batch needs at least one job")
+    shapes = [tuple(a.shape for a in arrays) for arrays in per_job]
+    if len(set(shapes)) != 1:
+        raise ValueError("the jobs' voice tables differ in shape and do not "
+                         "stack: (fp, ip, up, gains, codes) shapes per job "
+                         f"{shapes}")
+    return tuple(np.stack(a) for a in zip(*per_job))
+
+
+def prepare_bank_arrays(bank, n_samples: int, block_size: int,
                         dtype: str = "float32", *, device="cuda"):
     """Host-side precompute, moved to `device` in one transfer per array.
 
     Returns ((fp, ip, up, gains, codes) tensors, statics dict with
     block_size and n_blocks). up holds the uint32 NCO words as int64.
+    `bank` may be a list of VoiceBanks (a batch of jobs over the same
+    n_samples): every table then has a leading job axis, (J, V, ·), and a
+    ValueError names the shapes of jobs that do not stack.
     """
     dev = torch.device(device)
-    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                 for a in _host_bank_arrays(bank, dtype))
+    host = (_stack_jobs(bank, dtype) if isinstance(bank, (list, tuple))
+            else _host_bank_arrays(bank, dtype))
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host)
     statics = dict(block_size=block_size,
                    n_blocks=(n_samples + block_size - 1) // block_size)
     return args, statics
@@ -211,25 +230,30 @@ def compact_block_args(args, statics):
 
 def voicebank_blocks_impl(fp, ip, up, gains, codes, *, block_size: int,
                           n_blocks: int, block_offset: int = 0) -> torch.Tensor:
-    """Render n_blocks blocks of block_size samples from dense (V, ·)
-    tables, starting at the timeline's block `block_offset` (the 2-D
-    sharded chain renders its time slice so). Returns (n_blocks,
-    block_size, C)."""
-    out = cuda_voicebank.render_blocks(fp, ip, up, gains, codes,
+    """Render n_blocks blocks of block_size samples from one job's dense
+    (V, ·) tables, starting at the timeline's block `block_offset` (the
+    2-D sharded chain renders its time slice so) -> (n_blocks, block_size,
+    C); or from J jobs' (J, V, ·) tables, every job in one kernel launch,
+    -> (J, n_blocks, block_size, C)."""
+    tables = (fp, ip, up, gains, codes)
+    one = fp.dim() == 2
+    out = cuda_voicebank.render_blocks(*(cuda_voicebank.one_job(tables) if one else tables),
                                        block_size=block_size, n_blocks=n_blocks,
                                        block_offset=block_offset)
-    return out.view(n_blocks, block_size, -1)
+    out = out.view(out.shape[0], n_blocks, block_size, -1)
+    return out[0] if one else out
 
 
 def voicebank_blocks_compact_impl(fpb, ipb, upb, gainsb, codesb, *,
                                   block_size: int, n_blocks: int,
                                   block_offset: int = 0) -> torch.Tensor:
-    """voicebank_blocks_impl over per-block compacted voice tables
-    (compact_block_args): block b reads its own (V_max, ·) rows and renders
-    the timeline's block b + block_offset. Returns (n_blocks, block_size, C)."""
-    out = cuda_voicebank.render_blocks(fpb, ipb, upb, gainsb, codesb,
-                                       block_size=block_size, n_blocks=n_blocks,
-                                       block_offset=block_offset)
+    """voicebank_blocks_impl over one job's per-block compacted voice
+    tables (compact_block_args): block b reads its own (V_max, ·) rows and
+    renders the timeline's block b + block_offset. Returns (n_blocks,
+    block_size, C)."""
+    out = cuda_voicebank.render_blocks(
+        *cuda_voicebank.one_job((fpb, ipb, upb, gainsb, codesb)),
+        block_size=block_size, n_blocks=n_blocks, block_offset=block_offset)
     return out.view(n_blocks, block_size, -1)
 
 

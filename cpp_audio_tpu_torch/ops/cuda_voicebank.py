@@ -6,18 +6,23 @@ same math (cpp_audio_tpu/models/voicebank.py:180 `_render_block`), whose
 per-voice eased curve codes the kernel also evaluates. See
 csrc/voicebank.cu for the kernel's design and what bounds it.
 
-Array contract (shared by both versions), with an optional leading n_blocks
-axis on every table for the per-block compacted layout
+Array contract (shared by both versions): every table has a leading job
+axis, J jobs rendered by one kernel launch (one job: J = 1, `one_job`),
+and, after it, an optional n_blocks axis for the per-block compacted layout
 (models/voicebank.compact_block_args):
-    fp    (.., V, 8) float  [amp, A, H, D, R, S, top, skip]
-    ip    (.., V, 2) int32  [press, release]
-    up    (.., V, 2) int64  [inc, phase0] uint32 NCO words, in [0, 2^32)
-    gains (.., V, C) float
-    codes (.., V, 3) int32  attack / decay / release easing codes
-Returns (n_blocks * block_size, C). `block_offset` (default 0) shifts the
-rendered blocks along the timeline: output block b is the timeline's block
-b + block_offset (its samples start at (b + block_offset) * block_size),
-while a compacted table's rows stay indexed by b. The 2-D sharded chain
+    fp    (J, [n_blocks,] V, 8) float  [amp, A, H, D, R, S, top, skip]
+    ip    (J, [n_blocks,] V, 2) int32  [press, release]
+    up    (J, [n_blocks,] V, 2) int64  [inc, phase0] uint32 NCO words, in [0, 2^32)
+    gains (J, [n_blocks,] V, C) float
+    codes (J, [n_blocks,] V, 3) int32  attack / decay / release easing codes
+Returns (J, n_blocks * block_size, C) of fp's dtype; each job's slice of a
+launch equals the bit to a launch of that job alone (the batched serving
+step, analysis/chain.prepare_offline_chain_device_batch, renders every job
+in one launch). The kernel renders float32 or float64 tables (gains of the
+same type). `block_offset` (default 0) shifts the rendered blocks along
+the timeline: output block b is the timeline's block b + block_offset (its
+samples start at (b + block_offset) * block_size), while a compacted
+table's rows stay indexed by b. The 2-D sharded chain
 (parallel/mesh.make_sharded_chain_2d) renders its time slice this way.
 
 `render_blocks` dispatches on the tensors' device: CPU tensors take the
@@ -97,44 +102,53 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp = ctypes.c_void_p
     lib.voicebank_render.restype = ctypes.c_int
-    lib.voicebank_render.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     vp]
+    ll, i32 = ctypes.c_longlong, ctypes.c_int
+    lib.voicebank_render.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, ll, ll,
+                                     i32, i32, i32, i32, i32, vp]
     lib.voicebank_tile.restype = ctypes.c_int
     lib.voicebank_tile.argtypes = []
     return lib
 
 
+def one_job(tables) -> tuple:
+    """One job's tables (fp, ip, up, gains, codes) with the job axis added."""
+    return tuple(t.unsqueeze(0) for t in tables)
+
+
 def render_blocks_cuda(fp, ip, up, gains, codes, *, block_size: int,
                        n_blocks: int, block_offset: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel on torch.cuda.current_stream(); float32 only."""
+    """Launch the CUDA kernel on torch.cuda.current_stream(): every job of
+    the tables in one launch; float32 or float64."""
     global LAUNCHES
     tensors = (fp, ip, up, gains, codes)
     if any(t.device.type != "cuda" or t.device != fp.device for t in tensors):
         raise ValueError("render_blocks_cuda: every table must be on one CUDA device")
-    if fp.dtype != torch.float32 or gains.dtype != torch.float32:
-        raise TypeError("the voice-bank kernel renders float32 only "
-                        f"(got fp {fp.dtype}, gains {gains.dtype})")
+    if fp.dtype not in (torch.float32, torch.float64) or gains.dtype != fp.dtype:
+        raise TypeError("the voice-bank kernel renders float32 or float64 tables "
+                        f"of one type (got fp {fp.dtype}, gains {gains.dtype})")
     if ip.dtype != torch.int32 or codes.dtype != torch.int32:
         raise TypeError("ip and codes must be int32")
     if up.dtype != torch.int64:
         raise TypeError("up must hold the uint32 NCO words as int64")
-    compact = fp.dim() == 3
-    if fp.dim() not in (2, 3) or fp.shape[-1] != 8:
-        raise ValueError(f"fp must be (V, 8) or (n_blocks, V, 8), got {tuple(fp.shape)}")
+    if fp.dim() not in (3, 4) or fp.shape[-1] != 8:
+        raise ValueError("fp must be (J, V, 8) or (J, n_blocks, V, 8), got "
+                         f"{tuple(fp.shape)}")
+    compact = fp.dim() == 4
+    n_jobs = fp.shape[0]
     lead = fp.shape[:-1]
     C = gains.shape[-1]
     if (ip.shape[:-1] != lead or up.shape[:-1] != lead or codes.shape[:-1] != lead
             or gains.shape[:-1] != lead or ip.shape[-1] != 2 or up.shape[-1] != 2
             or codes.shape[-1] != 3):
         raise ValueError("fp, ip, up, gains and codes disagree on their leading shape")
-    if compact and fp.shape[0] < n_blocks:
-        raise ValueError(f"{fp.shape[0]} block tables for {n_blocks} blocks")
+    if compact and fp.shape[1] < n_blocks:
+        raise ValueError(f"{fp.shape[1]} block tables for {n_blocks} blocks")
     if C not in (1, 2):
         raise ValueError(f"the kernel mixes 1 or 2 channels, got {C}")
     if n_blocks > 65535:
         raise ValueError(f"n_blocks {n_blocks} exceeds the grid's y limit")
+    if n_jobs > 65535:
+        raise ValueError(f"{n_jobs} jobs exceed the grid's z limit")
     if not 0 <= block_offset < 2**31 - n_blocks:
         raise ValueError(f"block_offset {block_offset} out of the kernel's int range")
     fp_c = fp.contiguous()
@@ -143,7 +157,7 @@ def render_blocks_cuda(fp, ip, up, gains, codes, *, block_size: int,
     g_c = gains.contiguous()
     codes_c = codes.contiguous()
     n_rows = fp.shape[-2]
-    out = torch.empty((n_blocks * block_size, C), dtype=torch.float32,
+    out = torch.empty((n_jobs, n_blocks * block_size, C), dtype=fp.dtype,
                       device=fp.device)
     lib = load_library()
     with torch.cuda.device(fp.device):
@@ -151,7 +165,8 @@ def render_blocks_cuda(fp, ip, up, gains, codes, *, block_size: int,
         rc = lib.voicebank_render(
             fp_c.data_ptr(), ip_c.data_ptr(), up_c.data_ptr(), g_c.data_ptr(),
             codes_c.data_ptr(), out.data_ptr(), n_rows, C,
-            n_rows if compact else 0, block_size, n_blocks, block_offset, stream)
+            n_rows if compact else 0, int(np.prod(lead[1:])), block_size,
+            n_blocks, n_jobs, block_offset, int(fp.dtype == torch.float64), stream)
     if rc != 0:
         raise RuntimeError(f"voice-bank kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -215,10 +230,17 @@ def _render_block_plain(b: int, fp, ip, up, gains, codes, *, block_size: int,
     return oscillators.mixdown(sig, gains)
 
 
-def render_blocks_plain(fp, ip, up, gains, codes, *, block_size: int,
-                        n_blocks: int, block_offset: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, block by block (bounded memory:
-    one (V, block_size) tile at a time). Any float dtype; any device."""
+def _per_job(render, tables, **statics) -> torch.Tensor:
+    """The (J, T, C) stack of `render` over each job's tables (the tables'
+    first axis), one job at a time."""
+    return torch.stack([render(*(t[j] for t in tables), **statics)
+                        for j in range(tables[0].shape[0])])
+
+
+def _render_job_plain(fp, ip, up, gains, codes, *, block_size: int,
+                      n_blocks: int, block_offset: int = 0) -> torch.Tensor:
+    """One job's dense (V, ·) or compacted (n_blocks, V, ·) tables, block
+    by block -> (n_blocks * block_size, C)."""
     kinds = sorted(set(torch.unique(codes).tolist()))
     compact = fp.dim() == 3
     outs = []
@@ -230,6 +252,16 @@ def render_blocks_plain(fp, ip, up, gains, codes, *, block_size: int,
     if not outs:
         return torch.zeros((0, gains.shape[-1]), dtype=fp.dtype, device=fp.device)
     return torch.cat(outs, dim=0)
+
+
+def render_blocks_plain(fp, ip, up, gains, codes, *, block_size: int,
+                        n_blocks: int, block_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, job by job and block by block
+    (bounded memory: one (V, block_size) tile at a time). Any float dtype;
+    any device."""
+    return _per_job(_render_job_plain, (fp, ip, up, gains, codes),
+                    block_size=block_size, n_blocks=n_blocks,
+                    block_offset=block_offset)
 
 
 def tile_edges(block_size: int, tile: int = KERNEL_TILE) -> list[tuple[int, int]]:
@@ -255,12 +287,11 @@ def tile_live_rows(fp, ip, *, b: int, block_size: int, k0: int,
     return torch.nonzero(live).flatten()
 
 
-def render_blocks_tiled_plain(fp, ip, up, gains, codes, *, block_size: int,
-                              n_blocks: int, block_offset: int = 0,
-                              tile: int = KERNEL_TILE) -> torch.Tensor:
-    """render_blocks_plain as the kernel organises it: each tile of each
-    block renders only its `tile_live_rows`, in voice order; a tile with
-    none is zeros. Dense or per-block compacted tables."""
+def _render_job_tiled_plain(fp, ip, up, gains, codes, *, block_size: int,
+                            n_blocks: int, block_offset: int = 0,
+                            tile: int = KERNEL_TILE) -> torch.Tensor:
+    """render_blocks_tiled_plain of one job's (V, ·) or (n_blocks, V, ·)
+    tables -> (n_blocks * block_size, C)."""
     kinds = sorted(set(torch.unique(codes).tolist()))
     compact = fp.dim() == 3
     C = gains.shape[-1]
@@ -284,67 +315,87 @@ def render_blocks_tiled_plain(fp, ip, up, gains, codes, *, block_size: int,
     return torch.cat(outs, dim=0)
 
 
+def render_blocks_tiled_plain(fp, ip, up, gains, codes, *, block_size: int,
+                              n_blocks: int, block_offset: int = 0,
+                              tile: int = KERNEL_TILE) -> torch.Tensor:
+    """render_blocks_plain as the kernel organises it: each tile of each
+    block renders only its `tile_live_rows`, in voice order; a tile with
+    none is zeros. Dense or per-block compacted tables, job by job."""
+    return _per_job(_render_job_tiled_plain, (fp, ip, up, gains, codes),
+                    block_size=block_size, n_blocks=n_blocks,
+                    block_offset=block_offset, tile=tile)
+
+
 SEGMENTS = ("attack", "hold", "decay", "sustain", "release")
 
 
 def segment_voice_samples(fp, ip, *, block_size: int, n_blocks: int,
                           block_offset: int = 0) -> dict:
-    """(row, sample) pairs of a render in each envelope segment: the live
-    voice-samples, the work the kernel cannot skip. Counted in closed form
-    on the host from the kernel's thresholds (float32 A, A + H, A + H + D,
-    R against integer offsets t - press, t - release), block by block over
-    the block's own rows for compacted tables, the blocks starting at the
-    timeline's block `block_offset`. Skipped rows count nothing."""
-    fp = fp.detach().cpu().numpy().astype(np.float32)
+    """(row, sample) pairs of a render in each envelope segment, summed
+    over the jobs: the live voice-samples, the work the kernel cannot skip.
+    Counted in closed form on the host from the kernel's thresholds (A,
+    A + H, A + H + D, R in the tables' type, against integer offsets t -
+    press, t - release), block by block over the block's own rows for
+    compacted tables, the blocks starting at the timeline's block
+    `block_offset`. Skipped rows count nothing."""
+    fp = fp.detach().cpu().numpy()
     ip = ip.detach().cpu().numpy().astype(np.int64)
     counts = dict.fromkeys(SEGMENTS, 0)
-    for b in range(n_blocks):
-        f = fp[b] if fp.ndim == 3 else fp
-        i = ip[b] if ip.ndim == 3 else ip
-        lo, hi = (b + block_offset) * block_size, (b + block_offset + 1) * block_size
-        keep = ~(f[:, 7] > 0.5)
-        p, rl = i[keep, 0], i[keep, 1]
-        A, H, D, R = (f[keep, j] for j in (1, 2, 3, 4))
-        AH = A + H
-        ends = [p + np.ceil(A), p + np.ceil(AH), p + np.ceil(AH + D)]
-        # pressed segments end at the release; the release tail runs while
-        # t - release + 1 < R, i.e. to release - 1 + ceil(R)
-        bounds = [p] + [np.minimum(e.astype(np.int64), rl) for e in ends] + [rl]
-        for name, a, z in zip(SEGMENTS[:4], bounds[:4], bounds[1:]):
-            counts[name] += int(np.maximum(0, np.minimum(z, hi) - np.maximum(a, lo)).sum())
-        rz = rl - 1 + np.ceil(R).astype(np.int64)
-        ra = np.maximum(rl, p)
-        counts["release"] += int(np.maximum(0, np.minimum(rz, hi) - np.maximum(ra, lo)).sum())
+    for f_job, i_job in zip(fp, ip):
+        for b in range(n_blocks):
+            f = f_job[b] if f_job.ndim == 3 else f_job
+            i = i_job[b] if i_job.ndim == 3 else i_job
+            lo, hi = (b + block_offset) * block_size, (b + block_offset + 1) * block_size
+            keep = ~(f[:, 7] > 0.5)
+            p, rl = i[keep, 0], i[keep, 1]
+            A, H, D, R = (f[keep, j] for j in (1, 2, 3, 4))
+            AH = A + H
+            ends = [p + np.ceil(A), p + np.ceil(AH), p + np.ceil(AH + D)]
+            # pressed segments end at the release; the release tail runs while
+            # t - release + 1 < R, i.e. to release - 1 + ceil(R)
+            bounds = [p] + [np.minimum(e.astype(np.int64), rl) for e in ends] + [rl]
+            for name, a, z in zip(SEGMENTS[:4], bounds[:4], bounds[1:]):
+                counts[name] += int(np.maximum(0, np.minimum(z, hi) - np.maximum(a, lo)).sum())
+            rz = rl - 1 + np.ceil(R).astype(np.int64)
+            ra = np.maximum(rl, p)
+            counts["release"] += int(np.maximum(0, np.minimum(rz, hi) - np.maximum(ra, lo)).sum())
     return counts
 
 
 FP32_PEAK = 67e12   # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet)
+FP64_PEAK = 34e12   # FLOP/s, the same in float64 (NVIDIA data sheet)
 HBM_PEAK = 3.35e12  # bytes/s, H100 SXM HBM3
-# FP32 operations per live voice-sample of csrc/voicebank.cu with LINEAR
-# curves, counted from the source (an FMA counts 2): every segment pays the
+# Operations per live voice-sample of csrc/voicebank.cu with LINEAR curves,
+# counted from the float source (an FMA counts 2): every segment pays the
 # principal reduction's subtraction, z^2, the polynomial's four FMAs and
 # product (11) and one FMA per mixdown channel (2C); attack adds the sample
 # index, offset, +1, product with 1/A, clamp (2) and envelope product (7),
 # decay index, offset, -A, -H, +1, product with 1/max(D,1), clamp,
 # 1 + (S-1)x and envelope product (11), release index, offset, +1, product
-# with 1/R, clamp, 1 - x, top* and envelope product (9).
+# with 1/R, clamp, 1 - x, top* and envelope product (9). The float64
+# instantiation does the same formulas (a division in place of each
+# product with a reciprocal, rint and the sign in place of the integer
+# reduction), counted alike.
 _SEGMENT_FLOPS = {"attack": 7, "hold": 0, "decay": 11, "sustain": 0, "release": 9}
-_TABLE_ROW_BYTES = 8 * 4 + 2 * 4 + 2 * 8 + 3 * 4  # fp, ip, up (int64), codes
+_INT_ROW_BYTES = 2 * 4 + 2 * 8 + 3 * 4  # ip, up (int64), codes
 
 
 def kernel_bound(fp, ip, *, block_size: int, n_blocks: int,
                  n_channels: int, block_offset: int = 0) -> dict:
-    """The least time the card could take for this render: the larger of
-    the live voice-samples' FP32 operations over FP32_PEAK and the bytes
-    (tables read once, output written once) over HBM_PEAK."""
+    """The least time the card could take for one launch over every job of
+    the tables: the larger of the live voice-samples' operations over the
+    tables' type's peak (FP32_PEAK or FP64_PEAK) and the bytes (tables read
+    once, output written once) over HBM_PEAK."""
     counts = segment_voice_samples(fp, ip, block_size=block_size,
                                    n_blocks=n_blocks, block_offset=block_offset)
     flops = sum(n * (11 + 2 * n_channels + _SEGMENT_FLOPS[s])
                 for s, n in counts.items())
     rows = int(np.prod(fp.shape[:-1]))
-    n_bytes = (rows * (_TABLE_ROW_BYTES + 4 * n_channels)
-               + n_blocks * block_size * n_channels * 4)
-    t_ops, t_bytes = flops / FP32_PEAK, n_bytes / HBM_PEAK
+    item = fp.element_size()
+    n_bytes = (rows * (8 * item + _INT_ROW_BYTES + item * n_channels)
+               + fp.shape[0] * n_blocks * block_size * n_channels * item)
+    peak = FP64_PEAK if fp.dtype == torch.float64 else FP32_PEAK
+    t_ops, t_bytes = flops / peak, n_bytes / HBM_PEAK
     return dict(live_voice_samples=sum(counts.values()), segments=counts,
                 flops=flops, bytes=n_bytes, bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -355,10 +406,10 @@ def render_blocks(fp, ip, up, gains, codes, *, block_size: int,
     """Dispatch on the device of the tables: CPU -> render_blocks_plain,
     CUDA -> render_blocks_cuda (which raises on what it does not take)."""
     kind = fp.device.type
+    statics = dict(block_size=block_size, n_blocks=n_blocks,
+                   block_offset=block_offset)
     if kind == "cpu":
-        return render_blocks_plain(fp, ip, up, gains, codes, block_size=block_size,
-                                   n_blocks=n_blocks, block_offset=block_offset)
+        return render_blocks_plain(fp, ip, up, gains, codes, **statics)
     if kind == "cuda":
-        return render_blocks_cuda(fp, ip, up, gains, codes, block_size=block_size,
-                                  n_blocks=n_blocks, block_offset=block_offset)
+        return render_blocks_cuda(fp, ip, up, gains, codes, **statics)
     raise ValueError(f"no voice-bank renderer for device {fp.device}")

@@ -62,19 +62,21 @@ def fft_length_for(window_size: int, zero_padding_factor: int = 1) -> int:
 
 def frame_signal(signal: torch.Tensor, window_size: int, stride: int,
                  n_frames: int) -> torch.Tensor:
-    """(n_frames, window_size) sliding frames as a strided view."""
+    """(..., n_frames, window_size) sliding frames of the last axis as a
+    strided view."""
     if n_frames <= 0:
-        return signal.new_zeros((0, window_size))
-    return signal.unfold(0, window_size, stride)[:n_frames]
+        return signal.new_zeros((*signal.shape[:-1], 0, window_size))
+    return signal.unfold(-1, window_size, stride)[..., :n_frames, :]
 
 
 def _stft_sqmag(signal: torch.Tensor, window: torch.Tensor, *, window_size: int,
                 stride: int, fft_length: int) -> torch.Tensor:
-    """(n_frames, fft_length//2 + 1) squared magnitudes; frame f covers
+    """(..., n_frames, fft_length//2 + 1) squared magnitudes of the last
+    axis (a leading batch axis: one batched rfft); frame f covers
     [f*stride, f*stride + window_size)."""
-    n = signal.shape[0]
+    n = signal.shape[-1]
     n_frames = max(0, (n - window_size) // stride + 1)
-    frames = frame_signal(signal, window_size, stride, n_frames) * window[None, :]
+    frames = frame_signal(signal, window_size, stride, n_frames) * window
     # scale so a unit sine at a bin center gives sqmag 1
     scale = 2.0 / torch.sum(window)
     spec = torch.fft.rfft(frames, n=fft_length)
@@ -139,8 +141,8 @@ def _top_k_lanes(score: torch.Tensor, k: int, *carried: torch.Tensor):
     """The selection every top-k peak function shares: the k highest
     scores of each row, the earliest lane winning ties, returned in lane
     order with the -inf entries after the finite ones (stable: lane order
-    among them). Returns (top score, top lane (int64), *top carried), each
-    (rows, k).
+    among them). Rows are every index of the leading axes. Returns (top
+    score, top lane (int64), *top carried), each (..., k).
 
     Adjacent bins can never both be peaks (is_peak needs db > prev), so the
     row is first pair-reduced to half width exactly as the JAX package does;
@@ -152,13 +154,13 @@ def _top_k_lanes(score: torch.Tensor, k: int, *carried: torch.Tensor):
     if score.shape[-1] % 2:
         score = torch.nn.functional.pad(score, (0, 1), value=-torch.inf)
         chans = tuple(torch.nn.functional.pad(c, (0, 1)) for c in chans)
-    pick = score[:, ::2] >= score[:, 1::2]
-    s2 = torch.where(pick, score[:, ::2], score[:, 1::2])
-    c2 = [torch.where(pick, c[:, ::2], c[:, 1::2]) for c in chans]
+    pick = score[..., ::2] >= score[..., 1::2]
+    s2 = torch.where(pick, score[..., ::2], score[..., 1::2])
+    c2 = [torch.where(pick, c[..., ::2], c[..., 1::2]) for c in chans]
     if s2.shape[-1] < k:
         s2 = torch.nn.functional.pad(s2, (0, k - s2.shape[-1]), value=-torch.inf)
         c2 = [torch.nn.functional.pad(c, (0, k - c.shape[-1])) for c in c2]
-    order = torch.sort(s2, dim=-1, descending=True, stable=True).indices[:, :k]
+    order = torch.sort(s2, dim=-1, descending=True, stable=True).indices[..., :k]
     top_s = torch.gather(s2, -1, order)
     top_c = [torch.gather(c, -1, order) for c in c2]
     key = torch.where(torch.isfinite(top_s), top_c[0], score.shape[-1])
@@ -169,7 +171,8 @@ def _top_k_lanes(score: torch.Tensor, k: int, *carried: torch.Tensor):
 
 def _top_peaks(sqmag: torch.Tensor, *, sample_rate: int, fft_length: int,
                k: int):
-    """Top-k spectral peaks per frame -> (freq, mag_db), each (n_frames, k).
+    """Top-k spectral peaks per frame -> (freq, mag_db), each (..., n_frames,
+    k): a leading batch axis goes through one top-k over the last axis.
 
     Contract (cpp_audio_tpu/ops/stft.py:168 and :206-218):
       - top-k by interpolated magnitude, the earliest bin winning ties;

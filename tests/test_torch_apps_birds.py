@@ -36,6 +36,7 @@ from cpp_audio_tpu_torch.models import soundengine, voice_presets, wind
 from test_golden_semantics import FINGERPRINTS, band_fingerprint
 from test_torch_engine_core import OnCPU, on_port
 from test_web_demo import StubEngine, _get, demo_server  # noqa: F401 (fixture)
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 SECONDS = 0.2

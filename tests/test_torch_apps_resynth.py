@@ -22,6 +22,7 @@ from cpp_audio_tpu.apps import resynth_ui as jui
 from cpp_audio_tpu.utils import wav as wavio
 from cpp_audio_tpu_torch.apps import resynth as tapp
 from cpp_audio_tpu_torch.apps import resynth_ui as tui
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 RESYNTH_BAR = 2e-3

@@ -31,6 +31,7 @@ from cpp_audio_tpu_torch.utils import pitch_generators as tpg
 from cpp_audio_tpu_torch.utils import scales as tsc
 from cpp_audio_tpu_torch.utils import score as tscore
 from cpp_audio_tpu_torch.utils import wir as twir
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 HARMONICS_BAR = 1e-4

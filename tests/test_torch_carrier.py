@@ -24,6 +24,7 @@ from cpp_audio_tpu_torch.models import carrier as tcarrier
 from cpp_audio_tpu_torch.ops import envelopes as tenvelopes
 from cpp_audio_tpu_torch.ops import oscillators as toscillators
 from test_carrier import scalar_carrier_voice
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 FULL_MIX = dict(noise=0.15, saw=0.3, triangle=0.2, square=0.1, sine=0.25,

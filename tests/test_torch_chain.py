@@ -25,6 +25,7 @@ from cpp_audio_tpu_torch.analysis import chain as tchain
 from cpp_audio_tpu_torch.analysis import resynth as tresynth
 from cpp_audio_tpu_torch.analysis import vocoder as tvocoder
 from test_chain import _workload
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "cpp_audio_tpu_torch"

@@ -24,6 +24,7 @@ from cpp_audio_tpu_torch.analysis import device_tracker as tdt
 from cpp_audio_tpu_torch.analysis import resynth as tresynth
 from cpp_audio_tpu_torch.analysis import vocoder as tvocoder
 from test_chain import _workload
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 N = 2 * SR

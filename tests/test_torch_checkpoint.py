@@ -18,6 +18,7 @@ from cpp_audio_tpu.analysis import presets_json as jpj
 from cpp_audio_tpu_torch.analysis import checkpoint as ckpt
 from cpp_audio_tpu_torch.analysis.presets_json import OfflineJobConfig, ResynthPreset
 from cpp_audio_tpu_torch.utils import wav as wavio
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 11025
 RESYNTH_BAR = 2e-3

@@ -12,6 +12,8 @@ order and the kernel's integer principal reduction of the NCO word (<= 2.1e-7
 per voice-sample, csrc/voicebank.cu).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,22 @@ from cpp_audio_tpu_torch.models import sine_synth
 from cpp_audio_tpu_torch.models import voicebank as tvb
 from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 from cpp_audio_tpu_torch.ops import envelopes
+
+
+def cap_torch_threads() -> int:
+    """Give this test process an even share of the CPU's cores for torch's
+    intra-op thread pool: under pytest-xdist every worker would otherwise
+    run a pool as wide as the machine, and the workers oversubscribe the
+    cores. This module calls it when it is imported, and every
+    tests/test_torch_*.py imports this module. Returns the thread count
+    set."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    threads = max(1, (os.cpu_count() or 1) // max(1, workers))
+    torch.set_num_threads(threads)
+    return threads
+
+
+cap_torch_threads()
 
 ATOL = 2e-5
 
@@ -91,22 +109,57 @@ def test_kernel_matches_plain(cuda_card, eased, n_channels):
     args, st = tvb.prepare_bank_arrays(bank, 16384 + 77, 1500, device=cuda_card)
     cargs, cst = tvb.compact_block_args(args, st)
     for tables, statics in ((args, st), (cargs, cst)):
+        tables = cv.one_job(tables)
         before = cv.LAUNCHES
         k_out = cv.render_blocks(*tables, **statics)
         assert cv.LAUNCHES == before + 1
         p_out = cv.render_blocks_plain(*tables, **statics)
         torch.cuda.synchronize()
-        assert k_out.shape == p_out.shape == (statics["n_blocks"] * 1500, n_channels)
+        assert k_out.shape == p_out.shape == (1, statics["n_blocks"] * 1500, n_channels)
         assert float(p_out.abs().max()) > 0.05
         assert float((k_out - p_out).abs().max()) <= ATOL
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("eased", [False, True], ids=["linear", "eased23"])
+@pytest.mark.parametrize("n_channels", [1, 2])
+def test_kernel_float64_matches_plain(cuda_card, eased, n_channels):
+    """The float64 instantiation (the float64 chains' synth) against the
+    plain version in float64, dense and compacted, at 1e-12: both compute
+    the same exact forms and differ in FMA contraction, summation order and
+    the last ulp of the card's and the CPU's sin, cos and exp2; and a batch
+    of two jobs equal to the bit to each job's own launch."""
+    bank = _bank(46 if eased else 300, eased=eased, n_channels=n_channels)
+    args, st = tvb.prepare_bank_arrays(bank, 16384 + 77, 1500, dtype="float64",
+                                       device=cuda_card)
+    cargs, cst = tvb.compact_block_args(args, st)
+    for tables, statics in ((args, st), (cargs, cst)):
+        tables = cv.one_job(tables)
+        k_out = cv.render_blocks(*tables, **statics)
+        p_out = cv.render_blocks_plain(*tables, **statics)
+        torch.cuda.synchronize()
+        assert k_out.dtype == p_out.dtype == torch.float64
+        assert float(p_out.abs().max()) > 0.05
+        assert float((k_out - p_out).abs().max()) <= 1e-12
+    pair = tuple(torch.cat([a[None], a[None]]) for a in args)
+    out = cv.render_blocks_cuda(*pair, **st)
+    assert torch.equal(out[0], out[1])
+    assert torch.equal(out[0], cv.render_blocks_cuda(*cv.one_job(args), **st)[0])
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda_card):
+    """float16 tables, gains of another type than fp, and tables without
+    the job axis raise, and nothing launches: no fallback."""
     args, st = tvb.prepare_bank_arrays(_bank(8, eased=False), 4096, 1024,
-                                       dtype="float64", device=cuda_card)
+                                       device=cuda_card)
+    fp, ip, up, gains, codes = cv.one_job(args)
     before = cv.LAUNCHES
-    with pytest.raises(TypeError):  # float64 has no kernel: raise, no fallback
+    with pytest.raises(TypeError):
+        cv.render_blocks(fp.half(), ip, up, gains.half(), codes, **st)
+    with pytest.raises(TypeError):
+        cv.render_blocks(fp, ip, up, gains.double(), codes, **st)
+    with pytest.raises(ValueError):
         cv.render_blocks(*args, **st)
     assert cv.LAUNCHES == before
 
@@ -125,8 +178,9 @@ def test_kernel_on_tile_edges(cuda_card, block_size, n_channels):
     args, st, _ = edge_tables(block_size, n_channels, device=cuda_card)
     cargs, cst = tvb.compact_block_args(args, st)
     for tables, statics in ((args, st), (cargs, cst)):
-        k_out = cv.render_blocks_cuda(*tables, **statics)
-        p_out = cv.render_blocks_plain(*tables, **statics)
+        tables = cv.one_job(tables)
+        k_out = cv.render_blocks_cuda(*tables, **statics)[0]
+        p_out = cv.render_blocks_plain(*tables, **statics)[0]
         torch.cuda.synchronize()
         assert float(p_out.abs().max()) > 0.05
         assert float((k_out - p_out).abs().max()) <= ATOL
@@ -150,17 +204,51 @@ def test_kernel_block_offset(cuda_card, case):
                                            device=cuda_card)
         offset = 2
     B, nb = st["block_size"], st["n_blocks"] - offset
-    full = cv.render_blocks_cuda(*args, **st)
-    k_out = cv.render_blocks_cuda(*args, block_size=B, n_blocks=nb, block_offset=offset)
-    p_out = cv.render_blocks_plain(*args, block_size=B, n_blocks=nb, block_offset=offset)
     cargs, _cst = tvb.compact_block_args(args, st)
-    c_out = cv.render_blocks_cuda(*(a[offset:] for a in cargs), block_size=B,
-                                  n_blocks=nb, block_offset=offset)
+    args = cv.one_job(args)
+    full = cv.render_blocks_cuda(*args, **st)[0]
+    k_out = cv.render_blocks_cuda(*args, block_size=B, n_blocks=nb, block_offset=offset)[0]
+    p_out = cv.render_blocks_plain(*args, block_size=B, n_blocks=nb, block_offset=offset)[0]
+    c_out = cv.render_blocks_cuda(*cv.one_job(a[offset:] for a in cargs), block_size=B,
+                                  n_blocks=nb, block_offset=offset)[0]
     torch.cuda.synchronize()
     assert float(p_out.abs().max()) > 0.05
     assert float((k_out - p_out).abs().max()) <= ATOL
     assert torch.equal(k_out, full[offset * B:])
     assert float((c_out - p_out).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+@pytest.mark.parametrize("block_offset", [0, 1])
+def test_kernel_job_axis(cuda_card, compact, block_offset):
+    """Three jobs' tables in one launch (the batched serving step's synth):
+    each job's slice equal to the bit to its own launch, and within the bar
+    of the plain version; one job's dense tables without the job axis
+    raise."""
+    banks = [_bank(8, eased=eased, seed=seed)
+             for seed, eased in ((1, False), (2, True), (3, False))]
+    args, st = tvb.prepare_bank_arrays(banks, 16384 + 77, 1500, device=cuda_card)
+    if compact:  # 8 voices compact to 8 rows per block for every job
+        per_job = [tvb.compact_block_args(tuple(a[j] for a in args), st)[0]
+                   for j in range(len(banks))]
+        args = tuple(torch.stack(ts) for ts in zip(*per_job))
+    statics = dict(st, n_blocks=st["n_blocks"] - block_offset, block_offset=block_offset)
+    before = cv.LAUNCHES
+    out = cv.render_blocks(*args, **statics)
+    assert cv.LAUNCHES == before + 1
+    assert out.shape == (len(banks), statics["n_blocks"] * 1500, 2)
+    for j in range(len(banks)):
+        tables = tuple(a[j:j + 1] for a in args)
+        single = cv.render_blocks_cuda(*tables, **statics)[0]
+        plain = cv.render_blocks_plain(*tables, **statics)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(out[j], single)
+        assert float(plain.abs().max()) > 0.05
+        assert float((out[j] - plain).abs().max()) <= ATOL
+    if not compact:  # one job's dense (V, 8) tables have no job axis
+        with pytest.raises(ValueError):
+            cv.render_blocks_cuda(*(a[0] for a in args), **statics)
 
 
 @pytest.mark.cuda
@@ -187,7 +275,7 @@ def test_kernel_on_a_live_pull(cuda_card):
         before = cv.LAUNCHES
         k_out = synth.compute(t0, n)
         assert cv.LAUNCHES == before + 1
-        p_out = cv.render_blocks_plain(*args, **st)
+        p_out = cv.render_blocks_plain(*cv.one_job(args), **st)[0]
         torch.cuda.synchronize()
         assert k_out.shape == p_out.shape == (n, 2)
         assert float(p_out.abs().max()) > 0.02

@@ -28,6 +28,7 @@ from cpp_audio_tpu_torch.analysis import vocoder as tvocoder
 from cpp_audio_tpu_torch.parallel import mesh as tmesh
 from cpp_audio_tpu_torch.utils import loudness
 from test_chain import _workload
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 LI = loudness.phons_to_index(60.0)
@@ -232,6 +233,23 @@ def _device_chain(dtype):
     return run
 
 
+def _batch_step(dtype):
+    """The batched serving step: three jobs of tests/test_chain.py's
+    workload, each against its own carrier."""
+    def run():
+        bank, scfg = _workload(SR, N)
+        tbank = interop.voicebank_from_numpy(bank)
+        step, _ = tchain.prepare_offline_chain_device_batch(
+            [tbank] * 3, N, tresynth.ResynthConfig(sample_rate=SR, dtype=dtype),
+            tvocoder.VocoderParams(sample_rate=SR),
+            np.stack([CARRIER, -CARRIER, 0.5 * CARRIER]),
+            block_size=scfg.block_size, device="cpu")
+        stereo, voc, dropped = step()
+        assert stereo.shape[0] == voc.shape[0] == 3 and not bool(dropped.any())
+        assert float(stereo.abs().max()) > 1e-3 and float(voc.abs().max()) > 1e-3
+    return run
+
+
 def _vocoder(mode, shape):
     def run():
         t = np.arange(SR // 2) / SR
@@ -299,6 +317,8 @@ PATHS = {
     "tracker_batch": _tracker_batch,
     "device_chain_float32": _device_chain("float32"),
     "device_chain_df32": _device_chain("df32"),
+    "batch_step_float32": _batch_step("float32"),
+    "batch_step_float64": _batch_step("float64"),
     "vocoder_decimated_rectangular": _vocoder("decimated", "rectangular"),
     "vocoder_full_rectangular": _vocoder("full", "rectangular"),
     "vocoder_full_gaussian": _vocoder("full", "gaussian"),

@@ -31,6 +31,7 @@ from cpp_audio_tpu_torch.analysis import chain as tchain
 from cpp_audio_tpu_torch.analysis import device_tracker as tdt
 from cpp_audio_tpu_torch.analysis import resynth as tresynth
 from cpp_audio_tpu_torch.models import resynth_bank as trb
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 LI = loudness.phons_to_index(60.0)
 LOUD = (np.asarray(loudness.PITCHES, np.float64),

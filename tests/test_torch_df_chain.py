@@ -35,6 +35,7 @@ from cpp_audio_tpu_torch.ops import stft as tstft
 from test_chain import _workload
 from test_torch_chain_device import _tone_signal
 from test_torch_resynth_bank import STRIDE, _notes
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import note_metrics  # noqa: E402

@@ -30,6 +30,7 @@ from cpp_audio_tpu_torch import interop
 from cpp_audio_tpu_torch.ops import dfft_hybrid as tdfft_hybrid
 from cpp_audio_tpu_torch.ops import stft as tstft
 from test_df_peaks import _make_signal
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 
 def _small_signal(seed=0):

@@ -28,6 +28,7 @@ from cpp_audio_tpu_torch.analysis import chain as tchain
 from cpp_audio_tpu_torch.analysis import device_tracker as tdt
 from cpp_audio_tpu_torch.analysis import resynth as tresynth
 from cpp_audio_tpu_torch.models import resynth_bank as trb
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import note_metrics  # noqa: E402

@@ -48,6 +48,7 @@ from cpp_audio_tpu_torch.models import sine_synth as tsine
 from cpp_audio_tpu_torch.models import voice_presets as tvp
 from cpp_audio_tpu_torch.ops import envelopes as tenv
 from cpp_audio_tpu_torch.utils import interp as tinterp
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 STREAM_BAR = 1e-9

@@ -26,6 +26,7 @@ from cpp_audio_tpu.ops import filters as jflt
 from cpp_audio_tpu.utils import wav as jwav
 from cpp_audio_tpu_torch.analysis import vocoder as tvoc
 from cpp_audio_tpu_torch.ops import filters as tflt
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 

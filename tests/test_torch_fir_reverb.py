@@ -22,6 +22,7 @@ from cpp_audio_tpu_torch.ops import fir as tfir
 from cpp_audio_tpu_torch.ops import noise as tnoise
 from cpp_audio_tpu_torch.ops import resample as trs
 from cpp_audio_tpu_torch.ops import reverb as trv
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 

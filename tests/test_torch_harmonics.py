@@ -22,6 +22,7 @@ from cpp_audio_tpu_torch.core import voices as tvo
 from cpp_audio_tpu_torch.models import harmonics as th
 from cpp_audio_tpu_torch.models import voicebank as tvb
 from cpp_audio_tpu_torch.utils import presets as tpre
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 BANK_BAR = 2e-5

@@ -12,6 +12,7 @@ import torch
 
 from cpp_audio_tpu.ops import limiter as jlim
 from cpp_audio_tpu_torch.ops import limiter as tlim
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 F64_BAR = 1e-12
 

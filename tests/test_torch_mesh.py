@@ -34,6 +34,7 @@ from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 from cpp_audio_tpu_torch.ops import envelopes as tenvelopes
 from cpp_audio_tpu_torch.parallel import launch
 from cpp_audio_tpu_torch.parallel import mesh as tmesh
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 N_RENDER = 30000
@@ -174,9 +175,9 @@ def test_block_offset_matches_jax(offset, dtype):
     assert np.abs(ref).max() > 0.05
     np.testing.assert_allclose(got, ref, atol=2e-5 if dtype == "float32" else 1e-9)
     # the tile-by-tile plain form reaches the same blocks
-    tiled = cv.render_blocks_tiled_plain(*targs, block_size=tst["block_size"],
+    tiled = cv.render_blocks_tiled_plain(*cv.one_job(targs), block_size=tst["block_size"],
                                          n_blocks=nb, block_offset=offset)
-    np.testing.assert_allclose(tiled.numpy().reshape(got.shape), got,
+    np.testing.assert_allclose(tiled[0].numpy().reshape(got.shape), got,
                                atol=2e-5 if dtype == "float32" else 1e-9)
 
 
@@ -184,7 +185,7 @@ def test_block_offset_work_count():
     """The kernel's work count (its bound's input) of an offset render is
     the whole render's less that of the blocks before the offset."""
     args, st = _offset_bank("float32")
-    fp, ip = interop.bank_args_from_numpy(args, st, device="cpu")[0][:2]
+    fp, ip = cv.one_job(interop.bank_args_from_numpy(args, st, device="cpu")[0][:2])
     B, nb = st["block_size"], st["n_blocks"]
     whole = cv.segment_voice_samples(fp, ip, block_size=B, n_blocks=nb)
     head = cv.segment_voice_samples(fp, ip, block_size=B, n_blocks=2)

@@ -30,6 +30,7 @@ from cpp_audio_tpu_torch.analysis import vocoder as tvocoder
 from cpp_audio_tpu_torch.parallel import launch
 from cpp_audio_tpu_torch.parallel import mesh as tmesh
 from test_parallel import _chain_workload
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 N = 2 * SR        # the chains

@@ -24,6 +24,7 @@ from cpp_audio_tpu_torch.core import events as tevents
 from cpp_audio_tpu_torch.models import carrier as tcarrier
 from cpp_audio_tpu_torch.utils import midi_input as tmi
 from cpp_audio_tpu_torch.utils import midifile as tmf
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 

@@ -16,6 +16,7 @@ import pytest
 
 from cpp_audio_tpu.analysis import notes
 from cpp_audio_tpu_torch.analysis import notes as tnotes
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 

@@ -22,6 +22,7 @@ from cpp_audio_tpu_torch.analysis import offline_job as toj
 from cpp_audio_tpu_torch.analysis import presets_json as tpj
 from cpp_audio_tpu_torch.utils import wav as twav
 from cpp_audio_tpu_torch.utils.midi import Note as TNote
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 11025
 RESYNTH_BAR = 2e-3

@@ -20,6 +20,7 @@ import torch
 from cpp_audio_tpu.models import resynth_bank as rb
 from cpp_audio_tpu_torch import interop
 from cpp_audio_tpu_torch.models import resynth_bank as trb
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 STRIDE = 3969

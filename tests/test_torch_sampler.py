@@ -14,6 +14,7 @@ from cpp_audio_tpu.models import sampler as jsm
 from cpp_audio_tpu_torch.core import events as tev
 from cpp_audio_tpu_torch.models import sampler as tsm
 from cpp_audio_tpu_torch.ops import envelopes as tenv
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 BARS = {"float64": 1e-12, "float32": 1e-6}

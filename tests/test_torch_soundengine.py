@@ -29,6 +29,7 @@ from cpp_audio_tpu_torch.models import voice_presets as tvp
 from cpp_audio_tpu_torch.utils import markov as tmarkov
 from cpp_audio_tpu_torch.utils.interp import Itp
 from test_torch_engine_core import OnCPU, on_port
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 N = 8192

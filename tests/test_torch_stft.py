@@ -13,6 +13,7 @@ import torch
 
 from cpp_audio_tpu.ops import stft
 from cpp_audio_tpu_torch.ops import stft as tstft
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 

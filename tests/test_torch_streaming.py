@@ -22,6 +22,7 @@ from cpp_audio_tpu_torch.analysis import streaming as tstreaming
 from cpp_audio_tpu_torch.analysis import vocoder as tvocoder
 from cpp_audio_tpu_torch.core import events as tevents
 from cpp_audio_tpu_torch.models import carrier as tcarrier
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 

@@ -20,6 +20,7 @@ from cpp_audio_tpu_torch.core import voices as tvoices
 from cpp_audio_tpu_torch.models import sine_synth as tsine
 from cpp_audio_tpu_torch.models import streaming_synth as tstreaming
 from cpp_audio_tpu_torch.ops import envelopes as tenvelopes
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 

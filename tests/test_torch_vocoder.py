@@ -13,6 +13,7 @@ import torch
 
 from cpp_audio_tpu.analysis import vocoder
 from cpp_audio_tpu_torch.analysis import vocoder as tvoc
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 

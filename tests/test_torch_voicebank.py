@@ -24,6 +24,7 @@ from cpp_audio_tpu_torch.models import voicebank as tvb
 from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 from cpp_audio_tpu_torch.ops import fastmath as tfastmath
 from cpp_audio_tpu_torch.utils import interp as tinterp
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 ATOL = 2e-5
 
@@ -67,7 +68,7 @@ def test_dense_render_matches_xla(eased):
     if eased:
         assert st["a_itp"] is None  # JAX evaluates per-voice codes
     targs, tst = interop.bank_args_from_numpy(args, st, device="cpu")
-    got = cv.render_blocks(*targs, **tst).numpy()[:n]
+    got = cv.render_blocks(*cv.one_job(targs), **tst)[0].numpy()[:n]
     np.testing.assert_allclose(got, ref, atol=ATOL)
     assert np.abs(ref).max() > 0.1
 
@@ -81,7 +82,7 @@ def test_dense_render_matches_pallas_interpret():
                                           n_blocks=st["n_blocks"],
                                           interpret=True))[:n]
     targs, tst = interop.bank_args_from_numpy(args, st, device="cpu")
-    got = cv.render_blocks(*targs, **tst).numpy()[:n]
+    got = cv.render_blocks(*cv.one_job(targs), **tst)[0].numpy()[:n]
     np.testing.assert_allclose(got, pal, atol=ATOL)
 
 
@@ -209,6 +210,7 @@ def test_dispatch_follows_the_tensor_device():
     bank = make_bank(4)
     args, st = tvb.prepare_bank_arrays(interop.voicebank_from_numpy(bank), 4096,
                                        1024, device="cpu")
+    args = cv.one_job(args)
     before = cv.LAUNCHES
     cv.render_blocks(*args, **st)
     assert cv.LAUNCHES == before  # the CPU takes the plain version

@@ -23,8 +23,9 @@ from cpp_audio_tpu_torch import interop
 from cpp_audio_tpu_torch.analysis import chain as tchain
 from cpp_audio_tpu_torch.models import voicebank as tvb
 from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
-from test_torch_cuda_kernels import edge_tables
+from test_torch_cuda_kernels import edge_tables  # and caps torch's threads
 from test_torch_voicebank import make_bank
+
 
 ATOL = 2e-5
 EXACT_ORDER = 1e-6  # the same terms summed in another order
@@ -74,14 +75,14 @@ def _render_rows(b, tables, rows, block_size, kinds, k0, k1):
 @pytest.mark.parametrize("n_channels", [1, 2])
 def test_tiled_matches_dense_on_edges(block_size, n_channels):
     args, st, _ = edge_tables(block_size, n_channels)
-    dense = cv.render_blocks_plain(*args, **st)
-    tiled = cv.render_blocks_tiled_plain(*args, **st)
+    dense = cv.render_blocks_plain(*cv.one_job(args), **st)[0]
+    tiled = cv.render_blocks_tiled_plain(*cv.one_job(args), **st)[0]
     assert tiled.shape == dense.shape == (4 * block_size, n_channels)
     assert float(dense.abs().max()) > 0.05
     np.testing.assert_allclose(tiled.numpy(), dense.numpy(), atol=EXACT_ORDER)
     assert bool((tiled[3 * block_size:] == 0).all())  # the empty block
     cargs, cst = tvb.compact_block_args(args, st)
-    np.testing.assert_allclose(cv.render_blocks_tiled_plain(*cargs, **cst).numpy(),
+    np.testing.assert_allclose(cv.render_blocks_tiled_plain(*cv.one_job(cargs), **cst)[0].numpy(),
                                dense.numpy(), atol=EXACT_ORDER)
 
 
@@ -102,9 +103,9 @@ def test_tiled_matches_jax_compact(eased, layout):
                                          B, device="cpu")
     if layout == "compact":
         pargs, pst = tvb.compact_block_args(pargs, pst)
-    got = cv.render_blocks_tiled_plain(*pargs, **pst).numpy()[:n]
+    got = cv.render_blocks_tiled_plain(*cv.one_job(pargs), **pst)[0].numpy()[:n]
     np.testing.assert_allclose(got, ref, atol=ATOL)
-    dense = cv.render_blocks_plain(*pargs, **pst).numpy()[:n]
+    dense = cv.render_blocks_plain(*cv.one_job(pargs), **pst)[0].numpy()[:n]
     np.testing.assert_allclose(got, dense, atol=EXACT_ORDER)
     assert np.abs(ref).max() > 0.1
 
@@ -141,7 +142,7 @@ def test_segment_counts_match_the_envelope(case):
         if case == "bank_compact":
             args, st = tvb.compact_block_args(args, st)
         fp, ip = args[0], args[1]
-    got = cv.segment_voice_samples(fp, ip, **st)
+    got = cv.segment_voice_samples(fp[None], ip[None], **st)
     assert got == _brute_segments(fp, ip, st["block_size"], st["n_blocks"])
     assert got["sustain"] > 0 and got["release"] > 0 and got["attack"] > 0
 
@@ -165,8 +166,8 @@ def test_chain_renders_dense_tables(monkeypatch):
 
 def test_kernel_bound_counts_the_live_work():
     (fp, ip, *_), st, _ = edge_tables(3000)
-    counts = cv.segment_voice_samples(fp, ip, **st)
-    bound = cv.kernel_bound(fp, ip, n_channels=2, **st)
+    counts = cv.segment_voice_samples(fp[None], ip[None], **st)
+    bound = cv.kernel_bound(fp[None], ip[None], n_channels=2, **st)
     assert bound["segments"] == counts
     assert bound["live_voice_samples"] == sum(counts.values())
     flops = sum(n * (15 + cv._SEGMENT_FLOPS[s]) for s, n in counts.items())

@@ -32,6 +32,7 @@ from cpp_audio_tpu_torch.models import voice_presets as tvp
 from cpp_audio_tpu_torch.models import wind as twind
 from cpp_audio_tpu_torch.ops.noise import get_noise_tables
 from test_torch_engine_core import OnCPU, on_port
+import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 SR = 44100
 N = 8192

@@ -8,7 +8,8 @@ DIR holds another `cpp_audio_tpu_torch` package (for example the parent
 commit, `git archive <commit> | tar -x -C build/parent`, or a copy whose
 csrc/voicebank.cu was edited). Each version is built and launched by its own
 package's `ops/cuda_voicebank.render_blocks_cuda`, so each is timed as its
-own wrapper launches it. Both are held against this checkout's plain version
+own wrapper launches it (one job's tables with the job axis, or without it
+for a package from before the wrapper took one). Both are held against this checkout's plain version
 at 2e-5, then timed in the order other, this, this, other on both of
 chip_smoke's stopwatches (`cuda_ms`: one synchronised call, the host's
 enqueue on the clock; `cuda_ms_amortized`: back-to-back calls behind a
@@ -48,6 +49,18 @@ def load_voicebank_ops(root: Path, alias: str):
     sys.modules[alias] = pkg
     spec.loader.exec_module(pkg)
     return importlib.import_module(f"{alias}.ops.cuda_voicebank")
+
+
+def launcher(mod, tables, statics):
+    """A call of mod's kernel wrapper on one job's tables -> (T, C): with
+    the job axis, or, where mod's wrapper refuses that (a package from
+    before the job axis), without it."""
+    jobs = tuple(t.unsqueeze(0) for t in tables)
+    try:
+        mod.render_blocks_cuda(*jobs, **statics)
+        return lambda: mod.render_blocks_cuda(*jobs, **statics)[0]
+    except ValueError:
+        return lambda: mod.render_blocks_cuda(*tables, **statics)
 
 
 def sm_clock_under_load(fn, seconds: float = 2.0) -> list[float]:
@@ -113,9 +126,8 @@ def main() -> int:
     result = {"card": card, "other": str(a.other), "order": order}
     for label, (tables, statics) in (("compacted", compact), ("dense", dense),
                                      ("sustained", sustained)):
-        plain = cv.render_blocks_plain(*tables, **statics)
-        runs = {k: (lambda m=m: m.render_blocks_cuda(*tables, **statics))
-                for k, m in ops.items()}
+        plain = cv.render_blocks_plain(*cv.one_job(tables), **statics)[0]
+        runs = {k: launcher(m, tables, statics) for k, m in ops.items()}
         errs = {}
         for k, fn in runs.items():
             out = fn()
@@ -125,7 +137,7 @@ def main() -> int:
                 raise RuntimeError(f"{k} kernel disagrees with plain on {label}: {errs[k]}")
         entry = {"shape": list(tables[0].shape), "max_abs_err": errs,
                  "live_voice_samples": sum(cv.segment_voice_samples(
-                     tables[0], tables[1], **statics).values())}
+                     tables[0][None], tables[1][None], **statics).values())}
         for clock, timer in clocks.items():
             times = [(k, timer(runs[k])) for k in order]
             mean = {k: sum(t for j, t in times if j == k) / 2 for k in ops}
