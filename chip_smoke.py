@@ -38,7 +38,18 @@ Phases (any failure exits non-zero and prints no result):
      chain's own peaks, is false).
      Also step() of prepare_offline_chain_device alone (what the JAX
      headline times), and the synchronising calls torch's sync debug mode
-     reports per chain and per step().
+     reports per chain and per step(). Then step.cost_analysis()
+     (analysis/cost.py: the operations, bytes and transcendentals one
+     step() needs) as bench.py's rows (:236-262) for the port, `[cost f32]`:
+     gflops_per_render_f32, hbm_gb_per_render_f32, mfu_f32 (the operations
+     at the card's peak for their type over the median step() wall),
+     hbm_util_f32 and bound_ms_f32 (bench.py's names on another count:
+     the work the inputs need, where bench.py reads XLA's count of the
+     compiled program; the kernels line says so under cost_basis); and per
+     stage its count's bound beside its time from the stage-timed run
+     (synchronised per stage). Last,
+     cost_analysis() of the 2 s float64 chain (tests/test_chain.py's
+     workload) on cuda and on the CPU: every count equal.
   5. scan fallback: device_tracker.build_tables_device(_force_scan=True) on
      the headline peaks, timed once beside the frame-parallel tracker; both
      tables rendered, held at max|diff|/peak < 2e-3.
@@ -50,8 +61,9 @@ Phases (any failure exits non-zero and prints no result):
   7. df chain: the fidelity chain (dtype "df32", hybrid analysis: float32
      synth and vocoder, float64 peaks, tracker and phase advance) at the
      headline width on cuda, driven and checked as in 4 (1 kernel launch
-     per chain, float32 resynth); the tracker's violation flag on its own
-     float64 peaks (false); the "ladder" analysis once, its wall.
+     per chain, float32 resynth), its `[cost df]` rows with the tag df32;
+     the tracker's violation flag on its own float64 peaks (false); the
+     "ladder" analysis once, its wall.
   8. df fidelity, 12 s of the headline workload, bench.py's rows
      (:282-394) with the float64 reference on device="cpu": same peaks
      <= -80 dB, vocoded <= -120 dB, e2e resynth printed, note_e2e_pass.
@@ -235,6 +247,7 @@ SR = 44100
 SECONDS = 60.0
 BENCH_BLOCK = 1 << 18      # bench.py:71
 CHAIN_WALLS = {}           # phase 4 and 7's median warm walls, by dtype
+CHAIN_COSTS = {}           # phase 4 and 7's bench.py cost rows (the kernels line)
 
 
 def card_line() -> str:
@@ -524,12 +537,14 @@ def phase_chain(card: str):
 def _profile_chain(run, tag=""):
     """Diagnostic: wall time by stage (synchronised after each) and device
     time by kernel over one warm chain run (not a pass/fail phase;
-    torch.profiler may not see the device on every machine)."""
+    torch.profiler may not see the device on every machine). Returns the
+    stage times (s)."""
     stages = {}
     run(timings=stages)
     print(f"[{tag}stages] " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items())
           + f" (sum {sum(stages.values()) * 1e3:.3f} ms, synchronised per stage)")
     _profile_run(run, tag)
+    return stages
 
 
 def _profile_run(run, tag="", top=12):
@@ -681,8 +696,95 @@ def phase_device_chain(card: str, dtype: str = "float32") -> int:
     print(f"[{tag}] synchronising calls torch reports (sync debug "
           f"mode): per chain {_reported_syncs(run)}; per step() "
           f"{_reported_syncs(run_step)}")
-    _profile_chain(run, tag="device " if dtype == "float32" else "df ")
+    ca = step.cost_analysis()
+    stages = _profile_chain(run, tag="device " if dtype == "float32" else "df ")
+    print_cost(card, "f32" if dtype == "float32" else "df32", ca, step_wall,
+               stages)
+    if dtype == "float32":
+        check_cost_card_vs_cpu(card)
     return launches
+
+
+def cost_rows(ca: dict, wall_s: float, tag: str) -> dict:
+    """bench.py's cost rows (bench.py:236-262) of one step's
+    cost_analysis() at its median wall: GFLOP and GB per render, the MFU
+    (the operations at the card's peak for their type, float32 and
+    float64, over the wall), the HBM utilisation (bytes at HBM_PEAK over
+    the wall), and the step's bound (ms) with what bounds it."""
+    from cpp_audio_tpu_torch.analysis import cost
+
+    flops, f64, nbytes = ca["flops"], ca["flops_f64"], ca["bytes accessed"]
+    bound, by = cost.bound_ms(flops, f64, nbytes)
+    return {f"gflops_per_render_{tag}": flops / 1e9,
+            f"hbm_gb_per_render_{tag}": nbytes / 1e9,
+            f"mfu_{tag}": cost.op_seconds(flops, f64) / wall_s,
+            f"hbm_util_{tag}": nbytes / cost.HBM_PEAK / wall_s,
+            f"bound_ms_{tag}": bound, f"bound_by_{tag}": by}
+
+
+def print_cost(card: str, tag: str, ca: dict, step_wall: float,
+               stages: dict) -> None:
+    """The `[cost f32]` / `[cost df]` lines: the step's rows (into
+    CHAIN_COSTS) and each stage's bound beside its synchronised time."""
+    from cpp_audio_tpu_torch.analysis import cost
+
+    rows = cost_rows(ca, step_wall, tag)
+    # bench.py's names, counted otherwise: the work the inputs need, where
+    # bench.py reads XLA's count of the compiled (padded) program
+    CHAIN_COSTS.update(rows, cost_basis=ca["count basis"])
+    label = "f32" if tag == "f32" else "df"
+    print(f"[cost {label}] " + " ".join(
+        f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in rows.items())
+        + f" (count basis: {ca['count basis']}, not XLA's compiled program; "
+        f"float64 GFLOP {ca['flops_f64'] / 1e9:.6g}, transcendentals "
+        f"{ca['transcendentals']:.6g}, tracker path {ca['tracker path']}, "
+        + ", ".join(f"{k} {ca[k]:.0f}" for k in (
+            "tracker peaks", "tracker lanes", "tracker notes", "tracker rows",
+            "render live pairs"))
+        + f"; over the median "
+        f"step() wall {step_wall * 1e3:.3f} ms, not synchronised within) on "
+        f"{card}")
+    for s in cost.STAGES:
+        bound, by = cost.bound_ms(ca[f"{s} flops"], ca[f"{s} flops_f64"],
+                                  ca[f"{s} bytes accessed"])
+        t_ms = stages[s] * 1e3
+        staging = "; includes staging the arguments" if s == "synth" else ""
+        print(f"[cost {label}] stage {s}: GFLOP {ca[f'{s} flops'] / 1e9:.6g} "
+              f"(float64 {ca[f'{s} flops_f64'] / 1e9:.6g}), GB "
+              f"{ca[f'{s} bytes accessed'] / 1e9:.6g}, transcendentals "
+              f"{ca[f'{s} transcendentals']:.6g}, bound {bound:.6g} ms ({by}), "
+              f"stage time {t_ms:.3f} ms (synchronised after each stage, "
+              f"unlike step()'s wall{staging}), bound / time "
+              f"{bound / t_ms:.4g} on {card}")
+
+
+def check_cost_card_vs_cpu(card: str) -> None:
+    """cost_analysis() of the 2 s float64 chain (tests/test_chain.py's
+    workload) on cuda and on the CPU: every count equal (counts do not
+    depend on the device; float64 keeps the tracker's decisions off the
+    float32 knife-edges)."""
+    from cpp_audio_tpu_torch.analysis import chain
+
+    n = 2 * SR
+    sch, cfg = make_chain_test_workload(SR, n)
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg, "float64")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        step, _ = chain.prepare_offline_chain_device(
+            bank, n, rcfg, vparams, carrier, block_size=cfg.block_size,
+            device=dev)
+        got[dev] = step.cost_analysis()
+    if got["cuda"] != got["cpu"]:
+        diff = {k: (v, got["cpu"].get(k)) for k, v in got["cuda"].items()
+                if got["cpu"].get(k) != v}
+        raise RuntimeError(f"cost_analysis differs, cuda against the CPU: {diff}")
+    ca = got["cuda"]
+    print(f"[cost check] 2 s float64 chain: all {len(ca)} cost_analysis() "
+          f"entries equal on cuda and the CPU (GFLOP {ca['flops'] / 1e9:.6g}, "
+          f"GB {ca['bytes accessed'] / 1e9:.6g}, render live pairs "
+          f"{ca['render live pairs']:.0f}, tracker path {ca['tracker path']}) "
+          f"on {card}")
 
 
 def _sync_hits(run) -> tuple[int, str]:
@@ -712,21 +814,11 @@ def _reported_syncs(run) -> str:
 
 
 def _dispatched_ops(run) -> int:
-    """Diagnostic: the ATen ops one run dispatches, views included (a
-    TorchDispatchMode that counts and forwards every call)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
+    """Diagnostic: the count of ATen ops one run dispatches, views included
+    (chain.dispatched_ops)."""
+    from cpp_audio_tpu_torch.analysis import chain
 
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
-
-    count = Count()
-    with count:
-        run()
-    return count.n
+    return len(chain.dispatched_ops(run))
 
 
 def headline_tracker_inputs(n, sch, cfg, dev, dtype="float32"):
@@ -3601,6 +3693,7 @@ def main() -> int:
         "launches": launches,
         "launches_device_chain": launches_device,
         "launches_df_chain": launches_df,
+        **CHAIN_COSTS,
         **measured,
     }]}
     print(json.dumps(kernels))

@@ -428,17 +428,36 @@ def _tracker_call_kwargs(rconfig, rcfg, n_frames: int, at_arrays) -> dict:
                 **tracker_config_kwargs(rconfig, rcfg))
 
 
+def _front(bank_args, av_args, tracker_args, *, av_kw: dict, tr_kw: dict,
+           df: bool, df_mode: str = "hybrid", stage=_no_stage):
+    """The chain up to its slot table: synth -> analysis peaks -> device
+    tracker, plus the vocoder; the fidelity chain's (df: float64 peaks in
+    the analysis mode df_mode, the float64 tracker) or the config dtype's.
+    Returns (freq, mag, mix, table, dropped); `stage` marks the first four
+    stages."""
+    if df:
+        freq, mag, mix = _fused_analyze_vocode_df(
+            *bank_args, *av_args, df_mode=df_mode, stage=stage, **av_kw)
+        build = device_tracker.build_tables_device_df
+    else:
+        freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args,
+                                               stage=stage, **av_kw)
+        build = device_tracker.build_tables_device
+    table, dropped = build(freq, mag, *tracker_args, device=freq.device,
+                           **tr_kw)
+    stage("tracker")
+    return freq, mag, mix, table, dropped
+
+
 def _fused_single_dispatch(bank_args, av_args, tracker_args, *, av_kw: dict,
                            tr_kw: dict, dtype: str, stage=_no_stage):
     """The whole offline chain on the device: synth -> STFT -> peaks ->
     device tracker -> tracked-note render, plus the vocoder (JAX
     chain.py:358-394). Returns (framed stereo (F, S, 2), vocoder mix,
     dropped) tensors; `stage` marks the five stages."""
-    freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, stage=stage,
-                                           **av_kw)
-    table, dropped = device_tracker.build_tables_device(
-        freq, mag, *tracker_args, device=freq.device, **tr_kw)
-    stage("tracker")
+    _freq, _mag, mix, table, dropped = _front(
+        bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw, df=False,
+        stage=stage)
     # (F, S, 2): the JAX program's channel-major (2, F, S) was a TPU layout
     out = resynth_bank._render_slots(table, stride=tr_kw["stride"], dtype=dtype)
     stage("render")
@@ -456,12 +475,9 @@ def _fused_single_dispatch_df(bank_args, av_args, tracker_args, *,
     vocoder mix, dropped); with emit="table" the (total_frames, n_slots,
     17) float64 table in place of the render (the note-level metric's
     input). `stage` as in _fused_single_dispatch."""
-    freq, mag, mix = _fused_analyze_vocode_df(*bank_args, *av_args,
-                                              df_mode=df_mode, stage=stage,
-                                              **av_kw)
-    table, dropped = device_tracker.build_tables_device_df(
-        freq, mag, *tracker_args, device=freq.device, **tr_kw)
-    stage("tracker")
+    _freq, _mag, mix, table, dropped = _front(
+        bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw, df=True,
+        df_mode=df_mode, stage=stage)
     if emit == "table":
         return table, mix, dropped
     out = resynth_bank._render_slots(table, stride=tr_kw["stride"],
@@ -513,7 +529,100 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
                                       av_kw=av_kw, tr_kw=tr_kw,
                                       dtype=rconfig.dtype, stage=stage)
 
+    def cost_analysis():
+        """The operations, bytes and transcendental evaluations one step()
+        needs, stage by stage, in bench.py's keys (analysis/cost.py: the
+        conventions, and step_cost: the keys). A measurement aid, as the
+        JAX package's `.lower().compile()` is: it runs the front of the
+        step once (synth -> analysis -> tracker, with the tracker's own
+        read of its violation flag), copies the voice tables to the host
+        (cuda_voicebank.kernel_bound counts there) and reads the run's
+        data-dependent counts in one synchronisation."""
+        return _step_cost(bank_args, av_args, tracker_args, av_kw=av_kw,
+                          tr_kw=tr_kw, rconfig=rconfig, df_mode=df_mode,
+                          emit=emit)
+
+    step.cost_analysis = cost_analysis
+    if df:
+        def compiled_text():
+            """The ATen ops one step() dispatches, one per line, recorded
+            over a run (the port compiles no program: this is what a step
+            runs; the JAX package returns its compiled program's text)."""
+            return "\n".join(dispatched_ops(step))
+
+        step.compiled_text = compiled_text
     return step, n_frames
+
+
+def dispatched_ops(run) -> list[str]:
+    """The ATen ops (views included) that run() dispatches, in order."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        run()
+    return ops
+
+
+def _step_cost(bank_args, av_args, tracker_args, *, av_kw: dict, tr_kw: dict,
+               rconfig, df_mode: str, emit: str) -> dict:
+    """cost_analysis of a prepared chain step (see there)."""
+    from . import cost
+
+    df = rconfig.dtype == "df32"
+    loops = device_tracker.FRAME_LOOPS
+    freq, mag, mix, table, _dropped = _front(
+        bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw, df=df,
+        df_mode=df_mode)
+    path = ("frame loop" if device_tracker.FRAME_LOOPS > loops
+            else "frame-parallel")
+    render_dtype = "float32" if df else rconfig.dtype
+    data = cost.tracker_data(freq, mag, table, path=path,
+                             stride=tr_kw["stride"], render_dtype=render_dtype,
+                             loudness_points=int(tracker_args[0].shape[0]))
+    n, S = av_kw["n"], tr_kw["stride"]
+    n_fields = table.shape[-1]
+    table_f64 = table.dtype == torch.float64
+    fp, ip, _up, gains = bank_args[:4]
+    stages = dict(
+        synth=cost.synth(fp, ip, block_size=av_kw["block_size"],
+                         n_blocks=av_kw["n_blocks"],
+                         n_channels=int(gains.shape[-1])),
+        analysis=cost.analysis(
+            n, n_channels=int(gains.shape[-1]), window_size=av_kw["window_size"],
+            stride=av_kw["stride"], fft_len=av_kw["fft_len"], k=av_kw["k"],
+            dtype=rconfig.dtype, df_mode=df_mode),
+        vocoder=cost.vocoder(
+            n, edges=av_kw["edges"], sample_rate=av_kw["sample_rate"],
+            mod_window=av_kw["mod_window"], voc_stride=av_kw["voc_stride"],
+            car_fft=av_kw["car_fft"], n_mod_frames=av_kw["n_mod_frames"],
+            mod_mode=av_kw["mod_mode"], mod_shape=av_kw["mod_shape"],
+            dtype=_synth_dtype(rconfig)),
+        tracker=cost.tracker(
+            data, float64=table_f64, n_fields=n_fields,
+            in_bytes=cost.nbytes([freq, mag, *tracker_args,
+                                  *tr_kw["autotune_arrays"]]),
+            out_bytes=cost.nbytes([table]) + 8),
+        render=(cost.count() if emit == "table" else cost.render(
+            data["live_pairs"], stride=S, total_frames=tr_kw["total_frames"],
+            n_slots=tr_kw["n_slots"], n_fields=n_fields,
+            table_float64=table_f64, dtype=render_dtype)))
+    if emit == "table":
+        out_bytes = cost.nbytes([table])
+    else:
+        out_bytes = (tr_kw["total_frames"] * S * cost.N_CHANNELS
+                     * dtype_of(render_dtype).itemsize)
+    out_bytes += cost.nbytes([mix]) + 8   # the mix and the dropped count
+    in_bytes = cost.nbytes([*bank_args, *av_args, *tracker_args,
+                            *tr_kw["autotune_arrays"]])
+    return cost.step_cost(stages, in_bytes=in_bytes, out_bytes=out_bytes,
+                          data=data)
 
 
 def df32_analysis_peaks(bank: voicebank.VoiceBank, n_samples: int,

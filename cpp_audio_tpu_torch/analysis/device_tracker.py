@@ -67,6 +67,8 @@ _Q = 128  # played-set capacity (build_tables_device caps max_voices at 127)
 # Host synchronisations made by the tracker: one read of the violation flag
 # per build_tables_device(_batch) call that tries the frame-parallel path.
 HOST_SYNCS = 0
+# Tables built by the exact frame loop (_scan_tables), one per job.
+FRAME_LOOPS = 0
 
 
 def _pitch_of_freq(freq):
@@ -288,6 +290,12 @@ def _group_ids(pitch, valid, d: float):
     return torch.cumsum(reach[:, :k].to(torch.int64), dim=-1) - 1
 
 
+def valid_peaks(freq, mag_db):
+    """(F, k) bool: the peaks with a finite magnitude and a finite, positive
+    frequency."""
+    return torch.isfinite(mag_db) & (freq > 0) & torch.isfinite(freq)
+
+
 def _frame_local(freq, mag_db, loud_pitches, loud_spl, at_root, at_scale,
                  at_equid, at_allowed, *, d: float, min_volume: float,
                  pitch_method: int, volume_method: int, shift_pre: float,
@@ -306,7 +314,7 @@ def _frame_local(freq, mag_db, loud_pitches, loud_spl, at_root, at_scale,
     Returns (F, k') tuned pitch (+inf pad), volume (0 pad), loudness order —
     k' doubles per enabled harmonize stage.
     """
-    valid = torch.isfinite(mag_db) & (freq > 0) & torch.isfinite(freq)
+    valid = valid_peaks(freq, mag_db)
     pitch = torch.where(valid, _pitch_of_freq(torch.clamp(freq, min=1e-9)),
                         torch.inf)
     vol = torch.where(valid, torch.pow(10.0, mag_db / 20.0), 0.0)
@@ -961,6 +969,8 @@ def _scan_tables(tpitch, volume, loud_order, n_data_frames, pan_draws,
                  phase_draws, defaults, kw):
     """(table, dropped) via the frame loop (the exact path: voice-cap drops,
     slot overflow, long tails, min_volume <= 0)."""
+    global FRAME_LOOPS
+    FRAME_LOOPS += 1
     P = kw["n_slots"]
     total_frames = kw["total_frames"]
     statics = (float(kw["stride"]), float(kw["sample_rate"]),

@@ -222,27 +222,13 @@ def _modulator_band_amps_decimated(signal, *, edges, window: int, stride: int,
     n_bands = len(edges) - 1
     if n_frames <= 0:
         return signal.new_zeros((*lead, 0, n_bands))
-    n_fft = 1
-    while n_fft < n:
-        n_fft *= 2
+    n_fft, bands = ssb_bands(edges, n, sample_rate)
     half = n_fft // 2
     X = torch.fft.rfft(signal, n=n_fft)
-    guard_bins = int(np.ceil(_SSB_GUARD_HZ * n_fft / sample_rate))
 
-    def hz_bins(lo_hz, hi_hz):
-        """Positive-frequency bin range of mask (hz > lo) & (hz <= hi)."""
-        k_lo = int(np.floor(lo_hz * n_fft / sample_rate)) + 1
-        k_hi = min(int(np.floor(hi_hz * n_fft / sample_rate)), half)
-        return k_lo, k_hi
-
-    def ssb_energy(k_lo, k_hi):
+    def ssb_energy(k_lo, k_hi, m):
         if k_hi < k_lo:
             return signal.new_zeros((*lead, n_frames))
-        width = k_hi - k_lo + 1
-        m = _MIN_SSB_M
-        while m < width + guard_bins:
-            m *= 2
-        m = min(m, n_fft)
         d = n_fft // m
         seg = X[..., k_lo:k_hi + 1]
         if k_lo == 0 or k_hi == half:  # DC / Nyquist have no conjugate partner
@@ -265,10 +251,29 @@ def _modulator_band_amps_decimated(signal, *, edges, window: int, stride: int,
                 n_frames=n_frames)
         return 2.0 * d * (m / n_fft) ** 2 * delta
 
-    band_e = torch.stack(
-        [ssb_energy(*hz_bins(edges[b], edges[b + 1])) for b in range(n_bands)],
-        dim=-1)  # (..., n_frames, n_bands)
+    band_e = torch.stack([ssb_energy(*band) for band in bands],
+                         dim=-1)  # (..., n_frames, n_bands)
     return _amps_from_band_energy(band_e, window=window, shape=shape)
+
+
+def ssb_bands(edges, n: int, sample_rate: int):
+    """The decimated modulator's plan for an n-sample signal: (n_fft, [(k_lo,
+    k_hi, m), ...]), the whole-signal FFT length and, per band, the
+    positive-frequency bin range of the mask (hz > lo) & (hz <= hi) and the
+    length m of the band's ifft (k_hi < k_lo: an empty band)."""
+    n_fft = 1
+    while n_fft < n:
+        n_fft *= 2
+    guard_bins = int(np.ceil(_SSB_GUARD_HZ * n_fft / sample_rate))
+    bands = []
+    for lo_hz, hi_hz in zip(edges[:-1], edges[1:]):
+        k_lo = int(np.floor(lo_hz * n_fft / sample_rate)) + 1
+        k_hi = min(int(np.floor(hi_hz * n_fft / sample_rate)), n_fft // 2)
+        m = _MIN_SSB_M
+        while m < k_hi - k_lo + 1 + guard_bins:
+            m *= 2
+        bands.append((k_lo, k_hi, min(m, n_fft)))
+    return n_fft, bands
 
 
 def _modulator_band_amps_full(signal, *, edges, window: int, stride: int,

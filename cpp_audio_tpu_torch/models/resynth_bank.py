@@ -243,6 +243,23 @@ def _phase_trajectory(inc, ratio, phb, k1, S: int):
     return oscillators.wrap_phase(phb + adv)
 
 
+def pressed_envelope(tp, A, H, D, sus):
+    """The LINEAR AHDSR envelope before the release, at tp samples after
+    the press (tp >= 0): attack ramp, hold, decay ramp, sustain. Non-
+    increasing in tp once the attack is over."""
+    va = torch.clamp((tp + 1.0) / A, 0.0, 1.0)
+    vd = 1.0 + (sus - 1.0) * torch.clamp(
+        (tp - A - H + 1.0) / torch.clamp(D, min=1.0), 0.0, 1.0)
+    return torch.where(tp < A, va, torch.where(
+        tp < A + H, 1.0, torch.where(tp < A + H + D, vd, sus)))
+
+
+def release_envelope(trm, top, R):
+    """The release ramp from `top`, at trm samples after the release (trm
+    >= 0): non-increasing in trm."""
+    return top * (1.0 - torch.clamp((trm + 1.0) / R, 0.0, 1.0))
+
+
 def _render_slots(table: torch.Tensor, *, stride: int,
                   dtype: str) -> torch.Tensor:
     """(n_frames, P, 16 or 17) -> (n_frames, stride, 2) stereo, float32 or
@@ -301,13 +318,9 @@ def _render_slots(table: torch.Tensor, *, stride: int,
         vol = vtgt + (vb - vtgt) * torch.exp(k1 * torch.log1p(-alpha))
         tp = tp0 + (k1 - 1.0)
         trm = tr0 + (k1 - 1.0)
-        va = torch.clamp((tp + 1.0) / A, 0.0, 1.0)
-        vd = 1.0 + (sus - 1.0) * torch.clamp(
-            (tp - A - H + 1.0) / torch.clamp(D, min=1.0), 0.0, 1.0)
-        pressed = torch.where(tp < A, va, torch.where(
-            tp < A + H, 1.0, torch.where(tp < A + H + D, vd, sus)))
-        rel = top * (1.0 - torch.clamp((trm + 1.0) / R, 0.0, 1.0))
-        env = torch.where(tp < 0, 0.0, torch.where(trm < 0, pressed, rel))
+        env = torch.where(tp < 0, 0.0, torch.where(
+            trm < 0, pressed_envelope(tp, A, H, D, sus),
+            release_envelope(trm, top, R)))
         # anti-alias gain at the frame-midpoint increment (a per-slot scalar)
         mid_inc = incf * torch.exp(lam * (S * 0.5))
         aliasing = oscillators.freq_aliasing_multiplicator(mid_inc)
