@@ -1,0 +1,9 @@
+"""stage_ms.<stage>: stage <stage> ("synth", "analysis", "tracker",
+"render" or "vocoder") of run_offline_chain_device's timings= (the device
+synchronised after each stage), its mean per job over the traced run's
+timed jobs."""
+
+
+def read(run, name):
+    xs = run.stage_s.get(name.split(".")[1])
+    return sum(xs) / len(xs) * 1e3 if xs else None
