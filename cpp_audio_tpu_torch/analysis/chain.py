@@ -27,6 +27,11 @@ because the TPU has no float64; here they are float64 inside.
 Both variants share the synth and vocoder legs (`_synth_mono`,
 `_vocode_mix`).
 
+Spans (utils/profiling.span): a "chain" span around each
+run_offline_chain(_device) call and each batched step(), a "staging" span
+around the staging of a step's arguments, and a span per stage (STAGES)
+around its work; `timings=` reads the same spans (profiling.timed).
+
 Reference scope: RtResynth's offline job loop (source/rt.resynth.lib.cpp:
 1185-1235 — input -> analysis -> resynth synth + vocoder).
 """
@@ -34,7 +39,6 @@ Reference scope: RtResynth's offline job loop (source/rt.resynth.lib.cpp:
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -44,6 +48,7 @@ from ..device import dtype_of
 from ..models import resynth_bank, voicebank
 from ..ops import dfft_hybrid
 from ..ops import stft as stft_ops
+from ..utils.profiling import span, timed
 from . import autotune as at
 from . import device_tracker
 from . import resynth as resynth_mod
@@ -55,6 +60,9 @@ from . import vocoder as vocoder_mod
 # package's environment override (chain.py:38), read at import as there.
 DF_ANALYSIS_MODE = os.environ.get("CPP_AUDIO_DF_ANALYSIS", "hybrid")
 
+# the chain's stage spans, in their order: the keys of `timings=`
+STAGES = ("synth", "analysis", "vocoder", "tracker", "render")
+
 
 @dataclass
 class OfflineChainResult:
@@ -63,27 +71,6 @@ class OfflineChainResult:
     n_frames: int
     tracker: str = "native"  # which tracker built the slot table
     dropped: object = 0     # dropped-NoteOn count (a device scalar on the device path)
-
-
-def _no_stage(name: str) -> None:
-    """Stage marker that measures nothing."""
-
-
-def _stage_clock(dev: torch.device, timings: dict | None):
-    """stage(name) marker: with a `timings` dict, synchronise the device and
-    store the wall seconds since the previous marker under `name` (a
-    measurement aid: the synchronisations cost overlap)."""
-    if timings is None:
-        return _no_stage
-    clock = [time.perf_counter()]
-
-    def stage(name):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        timings[name] = now - clock[0]
-        clock[0] = now
-    return stage
 
 
 def _synth_dtype(rconfig) -> str:
@@ -187,22 +174,23 @@ def _vocode_mix(mono, carrier, bm_car, rows, *, sample_rate: int,
 def _fused_analyze_vocode(fp, ip, up, gains, codes, window, carrier, bm_car,
                           rows, *, n: int, block_size: int, n_blocks: int,
                           window_size: int, stride: int, fft_len: int, k: int,
-                          stage=_no_stage, **voc_kw):
+                          **voc_kw):
     """Synth -> mono mixdown -> STFT top-k peaks, and the vocoder of the
-    mixdown (JAX chain.py:46-95). Returns (freq, mag_db, vocoder mix);
-    `stage` marks "synth", "analysis" and "vocoder". Tables with a leading
+    mixdown (JAX chain.py:46-95), in the spans "synth", "analysis" and
+    "vocoder". Returns (freq, mag_db, vocoder mix). Tables with a leading
     job axis run B jobs as one batch: one kernel launch, one batched STFT
     and top-k, one batched vocoder -> (B, F, k) peaks and (B, m) mixes."""
-    mono = _synth_mono(fp, ip, up, gains, codes, n=n, block_size=block_size,
-                       n_blocks=n_blocks)
-    stage("synth")
-    sq = stft_ops._stft_sqmag(mono, window, window_size=window_size,
-                              stride=stride, fft_length=fft_len)
-    freq, mag = stft_ops._top_peaks(sq, sample_rate=voc_kw["sample_rate"],
-                                    fft_length=fft_len, k=k)
-    stage("analysis")
-    mix = _vocode_mix(mono, carrier, bm_car, rows, **voc_kw)
-    stage("vocoder")
+    dev = fp.device
+    with span("synth", dev):
+        mono = _synth_mono(fp, ip, up, gains, codes, n=n, block_size=block_size,
+                           n_blocks=n_blocks)
+    with span("analysis", dev):
+        sq = stft_ops._stft_sqmag(mono, window, window_size=window_size,
+                                  stride=stride, fft_length=fft_len)
+        freq, mag = stft_ops._top_peaks(sq, sample_rate=voc_kw["sample_rate"],
+                                        fft_length=fft_len, k=k)
+    with span("vocoder", dev):
+        mix = _vocode_mix(mono, carrier, bm_car, rows, **voc_kw)
     return freq, mag, mix
 
 
@@ -210,7 +198,7 @@ def _fused_analyze_vocode_df(fp, ip, up, gains, codes, window, scale, carrier,
                              bm_car, rows, *, n: int, block_size: int,
                              n_blocks: int, window_size: int, stride: int,
                              fft_len: int, k: int, df_mode: str = "hybrid",
-                             stage=_no_stage, **voc_kw):
+                             **voc_kw):
     """The fidelity chain's synth -> analysis, and the vocoder (JAX
     chain.py:104): the synth renders and the vocoder runs in float32; the
     analysis peaks are double-grade, float64 inside. df_mode "hybrid"
@@ -219,27 +207,28 @@ def _fused_analyze_vocode_df(fp, ip, up, gains, codes, window, scale, carrier,
     and evaluates on the float64 spectrum (ops/stft._top_peaks_df).
     window: float64 (W,); scale: 0-d float64, (2 / sum(window))^2.
     Returns (freq, mag_db) float64 (F, k) and the float32 vocoder mix;
-    `stage` as in _fused_analyze_vocode."""
-    mono = _synth_mono(fp, ip, up, gains, codes, n=n, block_size=block_size,
-                       n_blocks=n_blocks)
-    stage("synth")
+    spans as in _fused_analyze_vocode."""
+    dev = fp.device
+    with span("synth", dev):
+        mono = _synth_mono(fp, ip, up, gains, codes, n=n, block_size=block_size,
+                           n_blocks=n_blocks)
     sr = voc_kw["sample_rate"]
-    if df_mode == "hybrid":
-        freq, mag = dfft_hybrid.hybrid_peaks_df32(
-            mono, window, scale, window_size=window_size, stride=stride,
-            fft_length=fft_len, sample_rate=sr, k=k)
-    elif df_mode == "ladder":
-        n_frames = max(0, (n - window_size) // stride + 1)
-        frames = stft_ops.frame_signal(mono, window_size, stride, n_frames)
-        sq = stft_ops.frames_sqmag_f64(frames, window, scale,
-                                       fft_length=fft_len)
-        freq, mag = stft_ops._top_peaks_df(sq, sample_rate=sr,
-                                           fft_length=fft_len, k=k)
-    else:
-        raise ValueError(f"unknown df analysis mode {df_mode!r}")
-    stage("analysis")
-    mix = _vocode_mix(mono, carrier, bm_car, rows, **voc_kw)
-    stage("vocoder")
+    with span("analysis", dev):
+        if df_mode == "hybrid":
+            freq, mag = dfft_hybrid.hybrid_peaks_df32(
+                mono, window, scale, window_size=window_size, stride=stride,
+                fft_length=fft_len, sample_rate=sr, k=k)
+        elif df_mode == "ladder":
+            n_frames = max(0, (n - window_size) // stride + 1)
+            frames = stft_ops.frame_signal(mono, window_size, stride, n_frames)
+            sq = stft_ops.frames_sqmag_f64(frames, window, scale,
+                                           fft_length=fft_len)
+            freq, mag = stft_ops._top_peaks_df(sq, sample_rate=sr,
+                                               fft_length=fft_len, k=k)
+        else:
+            raise ValueError(f"unknown df analysis mode {df_mode!r}")
+    with span("vocoder", dev):
+        mix = _vocode_mix(mono, carrier, bm_car, rows, **voc_kw)
     return freq, mag, mix
 
 
@@ -264,21 +253,23 @@ def _host_table(freq, mag, rconfig, n_frames: int, rcfg):
 
 
 def _host_chain_front(bank, n_samples, rconfig, vparams, carrier, block_size,
-                      dev, stage=_no_stage):
-    """Synth, analysis and vocoder on `dev`, then the host tracker's table:
+                      dev):
+    """Synth, analysis and vocoder on `dev`, then the host tracker's table
+    (the span "tracker": the peaks to the host and the table):
     (table, tracker name, n_frames, vocoder mix)."""
     if rconfig.dtype == "df32":
         raise ValueError("the host-tracker chain runs float32 or float64; the "
                          "fidelity chain (dtype 'df32') is "
                          "run_offline_chain_device")
-    bank_args, av_args, av_kw = _stage_analyze_vocode(
-        bank, n_samples, rconfig, vparams, carrier, block_size, dev)
-    freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, stage=stage,
-                                           **av_kw)
-    freq_h = freq.cpu().numpy()
-    n_frames = int(freq_h.shape[0])
-    table, tracker = _host_table(freq_h, mag.cpu().numpy(), rconfig, n_frames,
-                                 resynth_mod._render_config(rconfig))
+    with span("staging", dev):
+        bank_args, av_args, av_kw = _stage_analyze_vocode(
+            bank, n_samples, rconfig, vparams, carrier, block_size, dev)
+    freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, **av_kw)
+    with span("tracker", dev):
+        freq_h = freq.cpu().numpy()
+        n_frames = int(freq_h.shape[0])
+        table, tracker = _host_table(freq_h, mag.cpu().numpy(), rconfig, n_frames,
+                                     resynth_mod._render_config(rconfig))
     return table, tracker, n_frames, mix
 
 
@@ -296,16 +287,18 @@ def run_offline_chain(bank: voicebank.VoiceBank, n_samples: int,
 
     timings: when a dict is given, the device is synchronised after each
     stage and the stage's wall seconds are stored under "synth",
-    "analysis", "vocoder", "tracker" and "render" (a measurement aid: the
-    synchronisations cost overlap, so time the chain without it)."""
+    "analysis", "vocoder", "tracker" and "render", each from the end of
+    the one before ("synth" from the call's start, so it includes staging
+    the arguments; a measurement aid: the synchronisations cost overlap,
+    so time the chain without it). The call is one "chain" span."""
     dev = torch.device(device)
-    stage = _stage_clock(dev, timings)
-    table, tracker, n_frames, mix = _host_chain_front(
-        bank, n_samples, rconfig, vparams, carrier, block_size, dev, stage)
-    stage("tracker")
-    stereo = resynth_bank.render_table(table, resynth_mod._render_config(rconfig),
-                                       device_out=True, device=dev)
-    stage("render")
+    with span("chain", dev), timed(timings, dev, STAGES):
+        table, tracker, n_frames, mix = _host_chain_front(
+            bank, n_samples, rconfig, vparams, carrier, block_size, dev)
+        with span("render", dev):
+            stereo = resynth_bank.render_table(
+                table, resynth_mod._render_config(rconfig), device_out=True,
+                device=dev)
     return OfflineChainResult(resynth=stereo, vocoded=mix, n_frames=n_frames,
                               tracker=tracker)
 
@@ -429,60 +422,58 @@ def _tracker_call_kwargs(rconfig, rcfg, n_frames: int, at_arrays) -> dict:
 
 
 def _front(bank_args, av_args, tracker_args, *, av_kw: dict, tr_kw: dict,
-           df: bool, df_mode: str = "hybrid", stage=_no_stage):
+           df: bool, df_mode: str = "hybrid"):
     """The chain up to its slot table: synth -> analysis peaks -> device
     tracker, plus the vocoder; the fidelity chain's (df: float64 peaks in
     the analysis mode df_mode, the float64 tracker) or the config dtype's.
-    Returns (freq, mag, mix, table, dropped); `stage` marks the first four
-    stages."""
+    Returns (freq, mag, mix, table, dropped); the first four stages'
+    spans."""
     if df:
         freq, mag, mix = _fused_analyze_vocode_df(
-            *bank_args, *av_args, df_mode=df_mode, stage=stage, **av_kw)
+            *bank_args, *av_args, df_mode=df_mode, **av_kw)
         build = device_tracker.build_tables_device_df
     else:
-        freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args,
-                                               stage=stage, **av_kw)
+        freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, **av_kw)
         build = device_tracker.build_tables_device
-    table, dropped = build(freq, mag, *tracker_args, device=freq.device,
-                           **tr_kw)
-    stage("tracker")
+    with span("tracker", freq.device):
+        table, dropped = build(freq, mag, *tracker_args, device=freq.device,
+                               **tr_kw)
     return freq, mag, mix, table, dropped
 
 
 def _fused_single_dispatch(bank_args, av_args, tracker_args, *, av_kw: dict,
-                           tr_kw: dict, dtype: str, stage=_no_stage):
+                           tr_kw: dict, dtype: str):
     """The whole offline chain on the device: synth -> STFT -> peaks ->
     device tracker -> tracked-note render, plus the vocoder (JAX
-    chain.py:358-394). Returns (framed stereo (F, S, 2), vocoder mix,
-    dropped) tensors; `stage` marks the five stages."""
+    chain.py:358-394), in the five stages' spans. Returns (framed stereo
+    (F, S, 2), vocoder mix, dropped) tensors."""
     _freq, _mag, mix, table, dropped = _front(
-        bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw, df=False,
-        stage=stage)
+        bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw, df=False)
     # (F, S, 2): the JAX program's channel-major (2, F, S) was a TPU layout
-    out = resynth_bank._render_slots(table, stride=tr_kw["stride"], dtype=dtype)
-    stage("render")
+    with span("render", table.device):
+        out = resynth_bank._render_slots(table, stride=tr_kw["stride"],
+                                         dtype=dtype)
     return out, mix, dropped
 
 
 def _fused_single_dispatch_df(bank_args, av_args, tracker_args, *,
                               av_kw: dict, tr_kw: dict,
-                              df_mode: str = "hybrid", emit: str = "render",
-                              stage=_no_stage):
+                              df_mode: str = "hybrid", emit: str = "render"):
     """The fidelity chain on the device (JAX chain.py:404): synth (float32,
     the voice-bank kernel) -> double-grade peaks -> float64 device tracker
     -> 17-field table -> df-phase render (float32 out, the phase advance in
     float64), plus the float32 vocoder. Returns (framed stereo (F, S, 2),
     vocoder mix, dropped); with emit="table" the (total_frames, n_slots,
     17) float64 table in place of the render (the note-level metric's
-    input). `stage` as in _fused_single_dispatch."""
+    input). Spans as in _fused_single_dispatch."""
     _freq, _mag, mix, table, dropped = _front(
         bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw, df=True,
-        df_mode=df_mode, stage=stage)
+        df_mode=df_mode)
     if emit == "table":
         return table, mix, dropped
-    out = resynth_bank._render_slots(table, stride=tr_kw["stride"],
-                                     dtype="float32")
-    stage("render")
+    with span("render", table.device):
+        out = resynth_bank._render_slots(table, stride=tr_kw["stride"],
+                                         dtype="float32")
     return out, mix, dropped
 
 
@@ -493,11 +484,12 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
                                  mod_mode=None, emit: str = "render",
                                  device="cuda"):
     """Stage the device-resident arguments of the single-dispatch chain on
-    `device` and return (step, n_frames): `step(stage=None)` runs synth ->
-    STFT -> peaks -> device tracker -> render + vocoder over them and
-    returns (stereo framed (F, S, 2), vocoder mix, dropped) tensors; the one
-    device value it reads on the host is the tracker's violation flag. Call
-    step() back to back to serve; flatten with assemble_framed_stereo.
+    `device` (the span "staging") and return (step, n_frames): `step()`
+    runs synth -> STFT -> peaks -> device tracker -> render + vocoder over
+    them, in the five stages' spans, and returns (stereo framed (F, S, 2),
+    vocoder mix, dropped) tensors; the one device value it reads on the
+    host is the tracker's violation flag. Call step() back to back to
+    serve; flatten with assemble_framed_stereo.
 
     dtype "df32" stages the fidelity chain (_fused_single_dispatch_df, in
     the analysis mode DF_ANALYSIS_MODE); its emit="table" returns the slot
@@ -512,22 +504,24 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
     if emit not in ("render", "table") or (emit == "table" and not df):
         raise ValueError(f"emit={emit!r}: 'table' is the fidelity chain's "
                          "(dtype 'df32')")
-    bank_args, av_args, av_kw = _stage_analyze_vocode(
-        bank, n_samples, rconfig, vparams, carrier, block_size, dev, mod_mode)
     n_frames = _n_frames(n_samples, rconfig)
-    tracker_args, tr_kw = _tracker_inputs(
-        rconfig, resynth_mod._render_config(rconfig), n_frames, draws,
-        _device_dtype(rconfig), dev)
+    with span("staging", dev):
+        bank_args, av_args, av_kw = _stage_analyze_vocode(
+            bank, n_samples, rconfig, vparams, carrier, block_size, dev,
+            mod_mode)
+        tracker_args, tr_kw = _tracker_inputs(
+            rconfig, resynth_mod._render_config(rconfig), n_frames, draws,
+            _device_dtype(rconfig), dev)
     df_mode = DF_ANALYSIS_MODE
 
-    def step(stage=_no_stage):
+    def step():
         if df:
             return _fused_single_dispatch_df(
                 bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw,
-                df_mode=df_mode, emit=emit, stage=stage)
+                df_mode=df_mode, emit=emit)
         return _fused_single_dispatch(bank_args, av_args, tracker_args,
                                       av_kw=av_kw, tr_kw=tr_kw,
-                                      dtype=rconfig.dtype, stage=stage)
+                                      dtype=rconfig.dtype)
 
     def cost_analysis():
         """The operations, bytes and transcendental evaluations one step()
@@ -683,17 +677,18 @@ def run_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
     space including autotune (scale/chord/intervals) and harmonize; dtype
     "df32" runs the fidelity chain (float32 out). `resynth` is (T, 2),
     `dropped` a device scalar. timings: as in run_offline_chain ("tracker"
-    is the device tracker; "synth" includes staging the arguments)."""
+    is the device tracker; "synth" includes staging the arguments). The
+    call is one "chain" span, holding "staging" and the five stages'."""
     dev = torch.device(device)
-    stage = _stage_clock(dev, timings)
-    step, n_frames = prepare_offline_chain_device(
-        bank, n_samples, rconfig, vparams, carrier, block_size=block_size,
-        draws=draws, device=dev)
-    framed, mix, dropped = step(stage)
     rcfg = resynth_mod._render_config(rconfig)
-    return OfflineChainResult(
-        resynth=assemble_framed_stereo(framed, rcfg.start_sample),
-        vocoded=mix, n_frames=n_frames, tracker="device", dropped=dropped)
+    with span("chain", dev), timed(timings, dev, STAGES):
+        step, n_frames = prepare_offline_chain_device(
+            bank, n_samples, rconfig, vparams, carrier, block_size=block_size,
+            draws=draws, device=dev)
+        framed, mix, dropped = step()
+        stereo = assemble_framed_stereo(framed, rcfg.start_sample)
+    return OfflineChainResult(resynth=stereo, vocoded=mix, n_frames=n_frames,
+                              tracker="device", dropped=dropped)
 
 
 def _fused_resynth_from_signal(mono, window, tracker_args, *, tr_kw: dict,
@@ -762,27 +757,34 @@ def prepare_offline_chain_device_batch(banks, n_samples: int,
     banks: list of VoiceBank (same n_samples/config per job).
     carrier: (n,) shared or (B, n) per-job.
     Returns (step, n_frames); step() -> (stereo (B, T, 2), vocoded (B, m),
-    dropped (B,)).
+    dropped (B,)). The staging is a "staging" span (of the batch that the
+    next step() runs), each step() a "chain" span holding the five
+    stages'.
     """
     if rconfig.dtype == "df32":
         raise ValueError("the batched chain runs float32 or float64")
     dev = torch.device(device)
-    bank_args, av_args, av_kw = _stage_analyze_vocode(
-        list(banks), n_samples, rconfig, vparams, carrier, block_size, dev)
-    carrier_dev = av_args[1]
-    if carrier_dev.dim() == 2 and carrier_dev.shape[0] != len(banks):
-        raise ValueError(f"{carrier_dev.shape[0]} carriers for {len(banks)} jobs")
     n_frames = _n_frames(n_samples, rconfig)
     rcfg = resynth_mod._render_config(rconfig)
-    tracker_args, tr_kw = _tracker_inputs(rconfig, rcfg, n_frames, draws,
-                                          dtype_of(rconfig.dtype), dev)
+    with span("staging", dev):
+        bank_args, av_args, av_kw = _stage_analyze_vocode(
+            list(banks), n_samples, rconfig, vparams, carrier, block_size, dev)
+        carrier_dev = av_args[1]
+        if carrier_dev.dim() == 2 and carrier_dev.shape[0] != len(banks):
+            raise ValueError(f"{carrier_dev.shape[0]} carriers for {len(banks)} jobs")
+        tracker_args, tr_kw = _tracker_inputs(rconfig, rcfg, n_frames, draws,
+                                              dtype_of(rconfig.dtype), dev)
 
     def step():
-        freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, **av_kw)
-        tables, dropped = device_tracker.build_tables_device_batch(
-            freq, mag, *tracker_args, device=dev, **tr_kw)
-        framed = resynth_bank._render_slots(tables, stride=rcfg.stride,
-                                            dtype=rconfig.dtype)
-        return assemble_framed_stereo(framed, rcfg.start_sample), mix, dropped
+        with span("chain", dev):
+            freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, **av_kw)
+            with span("tracker", dev):
+                tables, dropped = device_tracker.build_tables_device_batch(
+                    freq, mag, *tracker_args, device=dev, **tr_kw)
+            with span("render", dev):
+                framed = resynth_bank._render_slots(tables, stride=rcfg.stride,
+                                                    dtype=rconfig.dtype)
+            stereo = assemble_framed_stereo(framed, rcfg.start_sample)
+        return stereo, mix, dropped
 
     return step, n_frames

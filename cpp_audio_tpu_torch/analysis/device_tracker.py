@@ -50,6 +50,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 FAR = 1e12
 _FAR32 = float(np.float32(FAR))  # the parallel tracker's np.float32(FAR)
 _PITCH_EPSILON = 1e-4  # rt.resynth.lib.algo.cpp:3
@@ -69,6 +71,14 @@ _Q = 128  # played-set capacity (build_tables_device caps max_voices at 127)
 HOST_SYNCS = 0
 # Tables built by the exact frame loop (_scan_tables), one per job.
 FRAME_LOOPS = 0
+# Host arrays copied to the device inside a chain step: the vocoder's
+# per-call kernel matrix and interpolation tables (analysis/vocoder.py).
+H2D_COPIES = 0
+# what a span records the change of (utils/profiling.span): the step's
+# waits for the device (flag reads and copies from host memory), the
+# frame loops
+profiling.COUNTERS["host_waits"] = lambda: HOST_SYNCS + H2D_COPIES
+profiling.COUNTERS["frame_loops"] = lambda: FRAME_LOOPS
 
 
 def _pitch_of_freq(freq):

@@ -30,6 +30,7 @@ import torch
 
 from ..ops import stft as stft_ops
 from ..ops.oscillators import chunked_cumsum
+from . import device_tracker
 
 MODULATOR_MAX_FFT = 2**16
 
@@ -124,6 +125,7 @@ def _strided_interp_read(C, *, d: int, stride: int, base: int, n_frames: int):
     lo = (f // d) * stride + offs
     idx_lo = torch.as_tensor(np.minimum(lo, last), device=C.device)
     idx_hi = torch.as_tensor(np.minimum(lo + 1, last), device=C.device)
+    device_tracker.H2D_COPIES += 3
     return C[..., idx_lo] * (1.0 - alpha) + C[..., idx_hi] * alpha
 
 
@@ -172,6 +174,7 @@ def _windowed_gauss_energy_conv(dens, *, d: int, stride: int, window: int,
     kpad[:, :K] = kern
     kmat = torch.as_tensor(kpad.reshape(d, c, S), dtype=dens.dtype,
                            device=dens.device)
+    device_tracker.H2D_COPIES += 1
     rows = J + c - 1
     need = rows * S  # >= (J-1)*S + K; the extra taps are kernel zeros
     m = dens.shape[-1]

@@ -12,17 +12,35 @@ Reference analogs:
 
 Port of cpp_audio_tpu/utils/profiling.py: the host utilities are copies;
 `device_trace` records with torch.profiler instead of jax.profiler.
+
+Spans (the port's own; the JAX package has none): `span(name, device)`
+marks a stretch of the program, such as a stage of the offline chain.
+A span records only while a torch profiler is recording (a
+`torch.profiler.profile` or `device_trace` block), or for the innermost
+`timed()` sink; otherwise it costs one check and does nothing. A
+recording span opens a `record_function` range of its name (so the
+profiler's trace shows it, and the device's idle gaps inside it), and
+keeps in SPANS: its name, its parent span, the id of the job or batch it
+belongs to (the latest `chain` span's, or the next one's outside any
+chain), its host start and end (`perf_counter_ns`), on a CUDA device a
+pair of timing events recorded on the current stream without
+synchronising (resolved when read), and the change of each program
+counter in COUNTERS over the span. Parents and ids follow one thread's
+spans: record from one thread at a time.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import queue
 import threading
 import time
 from collections import defaultdict
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class StageDurations:
@@ -111,21 +129,223 @@ def string_plot(values, *, height: int = 16, width: int | None = None,
     return "\n".join(rows)
 
 
+# Program counters a span records the change of: name -> a reading (the
+# modules that own the counters register them; analysis/device_tracker:
+# "host_waits" and "frame_loops").
+COUNTERS: dict = {}
+
+
+class _Off:
+    """The span of a stretch with nothing recording."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+_SINKS: list = []   # timed() sinks, innermost last
+_OPEN: list = []    # the recording spans now open, innermost last
+_CHAIN = [0, 0]     # the latest chain span's id, chain spans now open
+
+
+class SpanRecord:
+    """One recorded span. device_ms is None off a CUDA device, and until
+    SpanStore.summary() resolves the events."""
+
+    __slots__ = ("name", "parent", "id", "t0_ns", "t1_ns", "events", "device_ms",
+                 "counts")
+
+    def __init__(self, name, parent, id_, t0_ns, t1_ns, events, counts):
+        self.name, self.parent, self.id = name, parent, id_
+        self.t0_ns, self.t1_ns = t0_ns, t1_ns
+        self.events, self.device_ms, self.counts = events, None, counts
+
+    @property
+    def host_ms(self) -> float:
+        return (self.t1_ns - self.t0_ns) * 1e-6
+
+
+class SpanStore:
+    """The recorded spans, at most `cap`; past it a span is counted in
+    `dropped` and not kept."""
+
+    def __init__(self, cap: int = 1 << 14):
+        self.cap = cap
+        self.records: list[SpanRecord] = []
+        self.dropped = 0
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def add(self, rec: SpanRecord) -> None:
+        if len(self.records) < self.cap:
+            self.records.append(rec)
+        else:
+            self.dropped += 1
+
+    def reset(self) -> None:
+        self.records = []
+        self.dropped = 0
+
+    def summary(self, first: int = 0) -> dict:
+        """{"spans": {name: {"count", "jobs", "parent", "device_ms",
+        "host_ms", <counter>...}}, "dropped", "cap"} over the records from
+        index `first` on. "count" is the spans of the name, "jobs" the
+        distinct job or batch ids among them; every other number is a
+        mean per job or batch: the spans' device ms (None where a span has
+        no device time), host ms and counter changes, summed per id.
+        "parent" is the first span's parent. Waits for the device's events
+        it resolves."""
+        by_name: dict = {}
+        for r in self.records[first:]:
+            if r.events is not None:
+                start, end = r.events
+                end.synchronize()
+                r.device_ms, r.events = start.elapsed_time(end), None
+            by_name.setdefault(r.name, []).append(r)
+        spans = {}
+        for name, recs in by_name.items():
+            jobs = len({r.id for r in recs})
+            out = dict(count=len(recs), jobs=jobs, parent=recs[0].parent,
+                       device_ms=(None if any(r.device_ms is None for r in recs)
+                                  else sum(r.device_ms for r in recs) / jobs),
+                       host_ms=sum(r.host_ms for r in recs) / jobs)
+            for k in recs[0].counts:
+                out[k] = sum(r.counts[k] for r in recs) / jobs
+            spans[name] = out
+        return dict(spans=spans, dropped=self.dropped, cap=self.cap)
+
+
+SPANS = SpanStore()
+
+
+def _counts() -> dict:
+    return {k: f() for k, f in COUNTERS.items()}
+
+
+class _Span:
+    """A span with a profiler recording, or a timed() sink, or both."""
+
+    __slots__ = ("name", "device", "sink", "rec", "range", "parent", "id", "counts",
+                 "start", "t0_ns")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        dev = None if device is None else torch.device(device)
+        self.device = dev if dev is not None and dev.type == "cuda" else None
+        self.sink = _SINKS[-1] if _SINKS else None
+        self.rec = _autograd_profiler._is_profiler_enabled
+
+    def __enter__(self):
+        if self.rec:
+            if self.name == "chain":
+                _CHAIN[0] += 1
+                _CHAIN[1] += 1
+            self.id = _CHAIN[0] if _CHAIN[1] else _CHAIN[0] + 1
+            self.parent = _OPEN[-1].name if _OPEN else None
+            _OPEN.append(self)
+            self.range = _autograd_profiler.record_function(self.name)
+            self.range.__enter__()
+            self.counts = _counts()
+            self.start = None
+            if self.device is not None:
+                self.start = torch.cuda.Event(enable_timing=True)
+                self.start.record(torch.cuda.current_stream(self.device))
+            self.t0_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self.rec:
+            t1_ns = time.perf_counter_ns()
+            events = None
+            if self.device is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(torch.cuda.current_stream(self.device))
+                events = (self.start, end)
+            c1 = _counts()
+            self.range.__exit__(*exc)
+            _OPEN.remove(self)
+            if self.name == "chain":
+                _CHAIN[1] -= 1
+            SPANS.add(SpanRecord(self.name, self.parent, self.id, self.t0_ns, t1_ns,
+                                 events, {k: c1[k] - v for k, v in self.counts.items()}))
+        if self.sink is not None:
+            self.sink.mark(self.name)
+        return False
+
+
+def span(name: str, device=None):
+    """A context manager marking the enclosed stretch as span `name` of the
+    work on `device` (events are recorded on a CUDA device only). With no
+    profiler recording and no timed() sink it is one check: no range, no
+    event, no clock read, no synchronisation."""
+    if not (_SINKS or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    return _Span(name, device)
+
+
+class _Sink:
+    """timed()'s sink: at the exit of a span named in `names`, synchronise
+    the device and store the wall seconds since the previous such exit
+    (or the sink's start) under the span's name."""
+
+    def __init__(self, timings: dict, device, names):
+        self.timings, self.names = timings, frozenset(names)
+        dev = torch.device(device)
+        self.device = dev if dev.type == "cuda" else None
+        self.last = 0.0
+
+    def __enter__(self):
+        _SINKS.append(self)
+        self.last = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        _SINKS.remove(self)
+        return False
+
+    def mark(self, name: str) -> None:
+        if name not in self.names:
+            return
+        if self.device is not None:
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[name] = now - self.last
+        self.last = now
+
+
+def timed(timings: dict | None, device, names):
+    """A context manager: with a `timings` dict, the spans named in
+    `names` that open inside it (and inside no inner timed()) store their
+    walls in it, each from the previous one's end, the device
+    synchronised at each (a measurement aid: the synchronisations cost
+    overlap, so time the work without it). With None it does nothing."""
+    return _OFF if timings is None else _Sink(timings, device, names)
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str, *, device="cuda"):
     """torch.profiler trace (host activity, and the card's when `device` is
     a CUDA device) around a block, written as a Chrome trace to
     `log_dir`/trace.json — the device-side analog of the reference's
-    per-stage CPU timers (SURVEY §5.1)."""
+    per-stage CPU timers (SURVEY §5.1) — and the summary of the spans
+    recorded in it (SpanStore.summary) to `log_dir`/spans.json."""
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    first = len(SPANS)
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "spans.json"), "w") as f:
+        json.dump(SPANS.summary(first), f, indent=1)
