@@ -219,6 +219,22 @@ Phases (any failure exits non-zero and prints no result):
      the harmonize over the whole chain in float64 (the same chains in
      float32 printed as a reading, without a bar; see _serving_reference),
      autotune as phase 6 holds it.
+ 17. the tracked-note render kernel (ops/cuda_render, csrc/tracked_render.cu)
+     against its plain twin (models/resynth_bank._render_slots_plain) on the
+     card at the headline's tables (the device tracker's on phase 4's
+     peaks): the float32 16-field table no further from the float64 plain
+     render than 1.5x the plain float32 render is (+ 1e-6), the same table
+     rendered in float64 within 1e-12 of the peak of the plain, and the
+     fidelity chain's 17-field float64 table rendered to float32 within
+     5e-5 (tests/test_torch_cuda_render.py's bars); a batch of 16 copies
+     in one launch, each job's slice equal to the bit to the single
+     launch. Times (CUDA events): one synchronised call (`render_ms`),
+     amortized (`render_ms_amortized`), the batch of 16 amortized
+     (`render_ms_batch16`), the plain float32 render (`render_plain_ms`);
+     the live (frame, slot) pairs and analysis/cost.render's bound
+     (`render_bound_ms`) with the share reached; launches per call and per
+     step() of prepare_offline_chain_device (`render_launches_step`, must
+     be 1).
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -375,15 +391,17 @@ def cuda_ms_amortized(fn, reps: int = 20, rounds: int = 5) -> float:
 
 
 def phase_build():
+    from cpp_audio_tpu_torch.ops import cuda_render as cr
     from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 
-    t0 = time.perf_counter()
-    path, log = cv.build()
-    cv.load_library()
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    for mod in (cv, cr):
+        t0 = time.perf_counter()
+        path, log = mod.build()
+        mod.load_library()
+        print(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build] {line.strip()}")
 
 
 def _hold(name, tables, statics, bar=None) -> float:
@@ -1024,6 +1042,102 @@ def phase_device_reference():
                 sig, acfg, implementation="python", device_out=True, device="cuda"))):
         n_o = min(g.shape[0], o.shape[0])
         _hold_resynth("autotune scale_major, 2 s signal", other, g[:n_o], o[:n_o])
+
+
+RENDER_BAR_DF = 5e-5       # tests/test_torch_cuda_render.py: the 17-field float32 render
+
+
+def phase_render_kernel(card: str) -> dict:
+    """Phase 17: the tracked-note render kernel against its plain twin at
+    the headline's tables, its times, bound and launches; returns the
+    measured keys of its entry in the kernels line."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import chain, cost
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+    from cpp_audio_tpu_torch.models import resynth_bank as rb
+    from cpp_audio_tpu_torch.ops import cuda_render as cr
+
+    n = int(SR * SECONDS)
+    sch, cfg = make_synth_workload(SR, n)
+    inputs, kw, render = headline_tracker_inputs(n, sch, cfg, "cuda")
+    table, _ = tdt.build_tables_device(*inputs, device="cuda", **kw)
+    inputs_df, kw_df, _ = headline_tracker_inputs(n, sch, cfg, "cuda", "df32")
+    table_df, _ = tdt.build_tables_device_df(*inputs_df, device="cuda", **kw_df)
+    S = render.stride
+    F, P = table.shape[0], table.shape[1]
+
+    def kernel(t, dtype="float32"):
+        return rb._render_slots(t, stride=S, dtype=dtype)
+
+    def plain(t, dtype="float32"):
+        return rb._render_slots_plain(t, stride=S, dtype=dtype)
+
+    before = cr.LAUNCHES
+    got = kernel(table)
+    launches_call = cr.LAUNCHES - before
+    exact = plain(table, "float64")
+    peak = float(exact.abs().max())
+    err_kernel = float((got.double() - exact).abs().max())
+    err_plain = float((plain(table).double() - exact).abs().max())
+    got64 = kernel(table, "float64")
+    err64 = float((got64 - plain(table.double(), "float64")).abs().max())
+    got_df = kernel(table_df)
+    err_df = float((got_df - plain(table_df)).abs().max())
+    batch = table.expand(16, *table.shape).contiguous()
+    out16 = kernel(batch)
+    same16 = all(torch.equal(out16[j], got) for j in range(16))
+    torch.cuda.synchronize()
+    print(f"[render] headline table {tuple(table.shape)} {table.dtype}, df "
+          f"{tuple(table_df.shape)} {table_df.dtype}, stride {S}, peak {peak:.4f}: "
+          f"float32 max|kernel-float64| {err_kernel:.3e} against the plain float32's "
+          f"{err_plain:.3e} (bar 1.5x + 1e-6); float64 max|kernel-plain| "
+          f"{err64:.3e} (bar {KERNEL_BAR_F64 * peak:.3e}); df float32 "
+          f"{err_df:.3e} (bar {RENDER_BAR_DF}); batch of 16 equal to the single "
+          f"launch: {same16}; launches per call {launches_call}")
+    if not (err_kernel <= 1.5 * err_plain + 1e-6 and err64 <= KERNEL_BAR_F64 * peak
+            and err_df <= RENDER_BAR_DF and same16 and launches_call == 1
+            and peak > 1e-3):
+        raise RuntimeError("the render kernel disagrees with its plain twin")
+
+    times = {"render_ms": cuda_ms(lambda: kernel(table)),
+             "render_ms_amortized": cuda_ms_amortized(lambda: kernel(table)),
+             "render_ms_f64": cuda_ms_amortized(lambda: kernel(table.double(), "float64")),
+             "render_ms_df": cuda_ms_amortized(lambda: kernel(table_df)),
+             "render_ms_batch16": cuda_ms_amortized(lambda: kernel(batch), reps=5),
+             "render_plain_ms": cuda_ms(lambda: plain(table), reps=3)}
+    live = int(cost.live_pairs(table, stride=S, dtype="float32").sum())
+    c = cost.render(live, stride=S, total_frames=F, n_slots=P, n_fields=16,
+                    table_float64=False, dtype="float32")
+    bound, by = cost.bound_ms(c["flops_f32"] + c["flops_f64"], c["flops_f64"],
+                              c["bytes"])
+    print(f"[render] kernel {times['render_ms']:.4f} ms per call, "
+          f"{times['render_ms_amortized']:.4f} amortized; float64 "
+          f"{times['render_ms_f64']:.4f}, df {times['render_ms_df']:.4f}, batch of 16 "
+          f"{times['render_ms_batch16']:.4f} ms amortized; plain float32 "
+          f"{times['render_plain_ms']:.4f} ms; live pairs {live} of {F * P}, "
+          f"{c['flops_f32'] / 1e9:.4f} GFLOP float32, {c['bytes'] / 1e6:.3f} MB: bound "
+          f"{bound:.5f} ms by {by}, share {bound / times['render_ms_amortized']:.4f} "
+          f"amortized on {card}")
+
+    bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg)
+    step, _ = chain.prepare_offline_chain_device(bank, n, rcfg, vparams, carrier,
+                                                 block_size=cfg.block_size,
+                                                 device="cuda")
+    step()
+    torch.cuda.synchronize()
+    before = cr.LAUNCHES
+    step()
+    torch.cuda.synchronize()
+    launches_step = cr.LAUNCHES - before
+    print(f"[render] launches per step() of the device chain: {launches_step}")
+    if launches_step != 1:
+        raise RuntimeError(f"{launches_step} render launches in one step()")
+    return {"render_max_abs_err": err_kernel, "render_max_abs_err_plain": err_plain,
+            "render_max_abs_err_f64": err64, "render_max_abs_err_df": err_df,
+            **times, "render_bound_ms": bound, "render_bound_by": by,
+            "render_live_pairs": live, "render_launches_call": launches_call,
+            "render_launches_step": launches_step}
 
 
 def phase_df_chain(card: str) -> int:
@@ -3667,6 +3781,7 @@ def main() -> int:
               f"x{torch.cuda.device_count()}")
         phase_build()
         measured = phase_kernel_vs_plain()
+        render_measured = phase_render_kernel(card)
         launches = phase_chain(card)
         phase_small_reference()
         launches_device = phase_device_chain(card)
@@ -3695,6 +3810,12 @@ def main() -> int:
         "launches_df_chain": launches_df,
         **CHAIN_COSTS,
         **measured,
+    }, {
+        "name": "tracked_render",
+        "route": "cuda",
+        "source": "cpp_audio_tpu_torch/csrc/tracked_render.cu",
+        "replaces": None,
+        **render_measured,
     }]}
     print(json.dumps(kernels))
     print(card)

@@ -38,7 +38,6 @@ import math
 
 import torch
 
-from ..device import dtype_of
 from ..models import resynth_bank as rb
 from ..ops import cuda_voicebank as cv
 from ..ops.cuda_voicebank import FP32_PEAK, FP64_PEAK, HBM_PEAK
@@ -322,33 +321,9 @@ def tracker_data(freq, mag, table, *, path: str, stride: int,
 def live_pairs(table: torch.Tensor, *, stride: int, dtype: str) -> torch.Tensor:
     """(..., F, P) bool: the (frame, slot) pairs of a slot table to which
     models/resynth_bank._render_slots gives a nonzero signal somewhere in
-    the frame, as far as the gains and the envelope decide. A pair is dead
-    when both gains are zero, or the envelope is zero at every sample k of
-    the frame (tp = tp0 + k, trm = tr0 + k, k < S): before the press (tp <
-    0); in the pressed part [k0, kr) the envelope is non-increasing once the
-    attack is over and positive before, so zero at its first and last
-    sample means zero over it; in the release part [max(k0, kr), S) it is
-    non-increasing, so zero at its first sample means zero over it. The
-    envelope is evaluated at those samples with the render's own
-    functions, in the render's dtype, so a pair counted dead renders
-    exactly zero. An empty slot (tp0 = -1e9, gains 0) is dead; a note's
-    release tail is live until its envelope reaches zero."""
-    wdt = dtype_of(dtype)
-    tab = table.to(wdt)
-    col = lambda i: tab[..., i]  # noqa: E731
-    tp0, tr0, top = col(rb._F_TP0), col(rb._F_TR0), col(rb._F_TOP)
-    A, H, D, sus, R = (col(i) for i in (rb._F_A, rb._F_H, rb._F_D, rb._F_SUS,
-                                        rb._F_R))
-    S = stride
-    k0 = torch.clamp(torch.ceil(-tp0), 0, S)   # first sample with tp >= 0
-    kr = torch.clamp(torch.ceil(-tr0), 0, S)   # first sample with trm >= 0
-    pressed_on = (k0 < kr) & (
-        (rb.pressed_envelope(tp0 + k0, A, H, D, sus) != 0)
-        | (rb.pressed_envelope(tp0 + (kr - 1.0), A, H, D, sus) != 0))
-    k_rel = torch.maximum(k0, kr)
-    release_on = (k_rel < S) & (rb.release_envelope(tr0 + k_rel, top, R) != 0)
-    gains_on = (col(rb._F_GL) != 0) | (col(rb._F_GR) != 0)
-    return gains_on & (pressed_on | release_on)
+    the frame (resynth_bank.live_slots over the whole frame): a pair
+    counted dead renders exactly zero."""
+    return rb.live_slots(table, stride=stride, dtype=dtype)
 
 
 # The render (models/resynth_bank._render_slots) per live pair: lam (1),

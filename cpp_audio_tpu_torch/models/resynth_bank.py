@@ -26,8 +26,12 @@ notes are packed into polyphony SLOTS; the renderer computes
 Port of cpp_audio_tpu/models/resynth_bank.py: the 16-field table and the
 fidelity chain's 17-field one, whose phase advance is computed in float64.
 The host table packer is copied. The render drops the JAX package's
-lax.cond split ladder and bounds memory by rendering a chunk of frames at a
-time instead (eager PyTorch materialises every intermediate that XLA fused).
+lax.cond split ladder. On a CUDA device it is one launch of the hand-written
+kernel (ops/cuda_render, csrc/tracked_render.cu), which renders only the
+slots that can sound in each tile of a frame (live_slots); on the CPU it is
+the plain PyTorch twin, _render_slots_plain, which bounds memory by
+rendering a chunk of frames at a time (eager PyTorch materialises every
+intermediate that XLA fused).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 
 from ..device import dtype_of
-from ..ops import envelopes, oscillators
+from ..ops import cuda_render, envelopes, oscillators
 from ..utils.interp import Itp
 
 # elements per (frames, slots, stride) intermediate of one job in one render
@@ -260,11 +264,64 @@ def release_envelope(trm, top, R):
     return top * (1.0 - torch.clamp((trm + 1.0) / R, 0.0, 1.0))
 
 
+def live_slots(table: torch.Tensor, *, stride: int, dtype: str, k_lo: int = 0,
+               k_hi: int | None = None) -> torch.Tensor:
+    """(..., F, P) bool: the (frame, slot) pairs of a slot table to which
+    the render gives a nonzero signal somewhere in samples [k_lo, k_hi) of
+    the frame (default: the whole frame, [0, stride)), as far as the gains
+    and the envelope decide; the kernel's per-tile selection
+    (csrc/tracked_render.cu live_in) in plain PyTorch. A pair is dead when
+    both gains are zero, or the envelope is zero at every sample k of the
+    range (tp = tp0 + k, trm = tr0 + k): before the press (tp < 0); in the
+    pressed part [k0, kr) the envelope is non-increasing once the attack is
+    over and positive before, so zero at its first and last sample means
+    zero over it; in the release part [max(k0, kr), k_hi) it is
+    non-increasing, so zero at its first sample means zero over it. The
+    envelope is evaluated at those samples with the render's own functions,
+    in the render's dtype, so a pair counted dead renders exactly zero over
+    the range. An empty slot (tp0 = -1e9, gains 0) is dead; a note's
+    release tail is live until its envelope reaches zero."""
+    k_hi = stride if k_hi is None else k_hi
+    tab = table.to(dtype_of(dtype))
+    col = lambda i: tab[..., i]  # noqa: E731
+    tp0, tr0, top = col(_F_TP0), col(_F_TR0), col(_F_TOP)
+    A, H, D, sus, R = (col(i) for i in (_F_A, _F_H, _F_D, _F_SUS, _F_R))
+    k0 = torch.clamp(torch.ceil(-tp0), k_lo, k_hi)   # first sample with tp >= 0
+    kr = torch.clamp(torch.ceil(-tr0), k_lo, k_hi)   # first sample with trm >= 0
+    pressed_on = (k0 < kr) & (
+        (pressed_envelope(tp0 + k0, A, H, D, sus) != 0)
+        | (pressed_envelope(tp0 + (kr - 1.0), A, H, D, sus) != 0))
+    k_rel = torch.maximum(k0, kr)
+    release_on = (k_rel < k_hi) & (release_envelope(tr0 + k_rel, top, R) != 0)
+    gains_on = (col(_F_GL) != 0) | (col(_F_GR) != 0)
+    return gains_on & (pressed_on | release_on)
+
+
 def _render_slots(table: torch.Tensor, *, stride: int,
                   dtype: str) -> torch.Tensor:
     """(n_frames, P, 16 or 17) -> (n_frames, stride, 2) stereo, float32 or
-    float64. A batch of jobs' tables, (B, n_frames, P, fields), renders to
-    (B, n_frames, stride, 2), every job in each pass.
+    float64; a batch of jobs' tables, (B, n_frames, P, fields), renders to
+    (B, n_frames, stride, 2). Dispatches on the table's device: CPU ->
+    _render_slots_plain; CUDA -> one launch of the kernel
+    (ops/cuda_render.render_slots_cuda, which raises on what it does not
+    take) over the table cast to the render's type (a 16-field table) or
+    to float64 (the fidelity chain's 17-field table)."""
+    kind = table.device.type
+    if kind == "cpu":
+        return _render_slots_plain(table, stride=stride, dtype=dtype)
+    if kind != "cuda":
+        raise ValueError(f"no tracked-note renderer for device {table.device}")
+    wdt = dtype_of(dtype)
+    tab = table.to(wdt if table.shape[-1] == N_FIELDS else torch.float64)
+    return cuda_render.render_slots_cuda(tab.contiguous(), stride=stride, dtype=wdt)
+
+
+def _render_slots_plain(table: torch.Tensor, *, stride: int,
+                        dtype: str) -> torch.Tensor:
+    """The kernel's plain twin: (n_frames, P, 16 or 17) -> (n_frames,
+    stride, 2) stereo, float32 or float64, every slot rendered. A batch of
+    jobs' tables, (B, n_frames, P, fields), renders to (B, n_frames,
+    stride, 2), every job in each pass. Any device.
 
     One (frames, P, stride) tile per chunk of frames; the chunk is sized so
     each intermediate stays near _RENDER_CHUNK_ELEMS elements per job, and

@@ -71,23 +71,24 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the voice-bank kernel cannot be built")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
-def build() -> tuple[Path, str]:
-    """Compile csrc/voicebank.cu into BUILD_DIR (once per source content).
+def build(source: Path = SOURCE, name: str = "voicebank") -> tuple[Path, str]:
+    """Compile a CUDA source of csrc/ (default: csrc/voicebank.cu) into
+    BUILD_DIR as lib<name>_<hash>.so, once per source content.
 
     Returns (shared library path, compiler log — ptxas register and spill
     report, empty when the library was already built). Raises on failure.
     """
-    tag = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    tag = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()
                        ).hexdigest()[:12]
-    lib = BUILD_DIR / f"libvoicebank_{tag}.so"
+    lib = BUILD_DIR / f"lib{name}_{tag}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")

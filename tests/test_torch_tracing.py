@@ -133,7 +133,10 @@ def test_host_waits_are_the_counters_by_hand():
     # the vocoder's kernel matrix, one per band, and the tracker's flag read
     assert copies == recs["vocoder"].counts["host_waits"] == ARGS[1].count_bands
     assert recs["tracker"].counts["host_waits"] == 1
-    assert recs["staging"].counts == {"host_waits": 0, "frame_loops": 0}
+    assert recs["staging"].counts == {"host_waits": 0, "frame_loops": 0,
+                                      "render_launches": 0}
+    # the CPU's render is the kernel's plain twin: no launch in any span
+    assert all(r.counts["render_launches"] == 0 for r in recs.values())
 
 
 def test_store_cap_counts_drops(monkeypatch):
