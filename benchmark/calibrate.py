@@ -6,7 +6,8 @@ sizes, in one process:
 For each of --seeds, `check_jobs` jobs from a stretch of the cell's
 sequence of takes that the seed draws (its first SPAN jobs; one batch for
 a batched cell) go through the program and each is compared with the plain
-reference (reference/chain.compare): the lower readings. For each of
+reference as a run's check compares it (drivers/offline_chain.compare):
+the lower readings. For each of
 --control-seeds, the same jobs' outputs come from the reference itself in
 lower precision (the control, reference/precision.py) and are compared alike: the
 upper readings. One JSON line per job, then a summary line.
@@ -30,8 +31,8 @@ def main() -> int:
 
     import torch
 
-    from benchmark.harness import runner, spec as spec_mod
-    from benchmark.harness.program import Program, host_peaks
+    from benchmark.harness import spec as spec_mod
+    from benchmark.harness.program import Program
     from benchmark.harness.traffic import Traffic
     from benchmark.reference import chain as ref_chain
     from benchmark.reference.precision import Precision
@@ -45,7 +46,11 @@ def main() -> int:
     cell = spec_mod.cell(spec, a.workload)
     config = spec_mod.config(spec, cell["config"])
     data = spec_mod.traffic(cell["traffic"])
-    rc = runner.reference_config(config)
+    if config.get("driver") != "offline_chain":
+        raise SystemExit(f"{a.workload}: calibrate.py reads the offline chain's cells; its "
+                         f"configuration's driver is {config.get('driver')!r}")
+    drv = spec_mod.driver(config)
+    rc = drv.reference_config(config)
     n_jobs = max(int(data["check_jobs"]), int(data["batch"]))
 
     def jobs_of(seed):
@@ -58,8 +63,6 @@ def main() -> int:
 
     def record(kind, seed, job, nums, into):
         for k, v in nums.items():
-            if k == "info":
-                continue
             into[k] = max(into.get(k, 0.0), v) if kind == "program" else min(
                 into.get(k, float("inf")), v)
         print(json.dumps({"kind": kind, "seed": seed, "job": job["index"],
@@ -72,17 +75,14 @@ def main() -> int:
         else:
             outs = program.run_batch(jobs[:traffic.batch])[:int(data["check_jobs"])]
         for job, out in zip(jobs, outs):
-            f, m = host_peaks(out)
-            got = dict(freq=f, mag=m, stereo=out["stereo"], vocoded=out["vocoded"],
-                       dropped=out["dropped"])
             t0 = time.perf_counter()
-            nums = ref_chain.compare(job, got, rc, DEVICE)
+            nums = drv.compare(job, drv.judged(out), rc, DEVICE)
             nums["check_s"] = time.perf_counter() - t0
             record("program", seed, job, nums, lower)
     for seed in a.control_seeds:
         for job in jobs_of(seed)[1][:int(data["check_jobs"])]:
             got = ref_chain.outputs(job, rc, Precision("lower"), DEVICE)
-            record("control", seed, job, ref_chain.compare(job, got, rc, DEVICE), upper)
+            record("control", seed, job, drv.compare(job, got, rc, DEVICE), upper)
     torch.cuda.synchronize()
     print(json.dumps({"summary": a.workload, "lower": lower, "upper": upper}))
     return 0

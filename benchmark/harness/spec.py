@@ -1,7 +1,9 @@
 """BENCHMARK.json and the files it names, found by name.
 
 A cell names a configuration (benchmark/configs/<config>.json) and a
-traffic mix (benchmark/traffic/<traffic>.json); every metric is read by
+traffic mix (benchmark/traffic/<traffic>.json); the configuration names the
+driver that runs its cells (benchmark/drivers/<driver>.py, see
+harness/runner.py); every metric is read by
 benchmark/metrics/<metric>.py or, where there is none, by the reader named
 by the metric's name up to its first dot (stage_ms.render ->
 stage_ms.py), whose `read(run, name)` returns a number or None.
@@ -35,8 +37,30 @@ def config(spec: dict, name: str, root: Path = ROOT) -> dict:
     raise SystemExit(f"no configuration named {name!r} in BENCHMARK.json")
 
 
-def traffic(name: str) -> dict:
-    return json.loads((BENCH_DIR / "traffic" / f"{name}.json").read_text())
+def traffic(name: str, bench_dir: Path = BENCH_DIR) -> dict:
+    return json.loads((bench_dir / "traffic" / f"{name}.json").read_text())
+
+
+def _load(path: Path, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def driver(config: dict, bench_dir: Path = BENCH_DIR):
+    """The module named by the configuration's "driver": <bench_dir>/drivers/<driver>.py.
+    There is no default."""
+    name = config.get("driver")
+    if name is None:
+        raise SystemExit(f"configuration {config.get('name')!r} has no \"driver\" key: "
+                         f"it names the module {bench_dir / 'drivers'}/<driver>.py that runs "
+                         "its cells")
+    path = bench_dir / "drivers" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"configuration {config.get('name')!r} names the driver {name!r}, "
+                         f"and {path} is missing")
+    return _load(path, f"bench_driver_{name}")
 
 
 def cell_metrics(spec: dict, cell_name: str, trace: bool) -> list[dict]:
@@ -63,7 +87,5 @@ def reader(metric: str):
             break
     else:
         raise SystemExit(f"no reader for metric {metric!r}: {path} is missing")
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{stem}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = _load(path, f"bench_metric_{stem}")
     return lambda run: mod.read(run, metric)

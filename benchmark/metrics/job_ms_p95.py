@@ -1,4 +1,5 @@
-"""95th percentile of every window job's time, submission to outputs on the host."""
+"""95th percentile of every window job's time, from when it was due (in a
+closed loop its submission) to its outputs on the host."""
 
 import numpy as np
 

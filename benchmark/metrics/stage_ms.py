@@ -1,5 +1,5 @@
 """stage_ms.<stage>: stage <stage> ("synth", "analysis", "tracker",
-"render" or "vocoder") of run_offline_chain_device's timings= (the device
+"render" or "vocoder") of the device chain's timings= (the device
 synchronised after each stage), its mean per job over the traced run's
 timed jobs."""
 

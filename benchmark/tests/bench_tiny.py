@@ -1,22 +1,24 @@
-"""Tiny stand-ins for the cells' traffic, so a whole run fits a CPU test."""
+"""Tiny stand-ins for the cells' traffic, so a whole run fits a CPU test: the
+mix <traffic> is cut to tests/tiny/<traffic>.json, read by the cell's driver
+as it reads the mix itself. A cell's stand-in is a data file of its own."""
 
+import json
 import time
+from pathlib import Path
 
 from benchmark.harness import runner, spec as spec_mod
 
-TINY = {
-    "single_60s": {"batch": 1, "take_seconds": [2], "voices": 8, "takes_seed": 17,
-                   "shuffle_block": 4, "check_jobs": 2, "profile_jobs": 1},
-    "batch16_60s": {"batch": 3, "take_seconds": [2], "voices": 8, "takes_seed": 17,
-                    "shuffle_block": 3, "check_jobs": 2, "profile_jobs": 3},
-    "clips_2-8s": {"batch": 1, "take_seconds": [2, 3], "voices": 8, "takes_seed": 19,
-                   "shuffle_block": 4, "check_jobs": 2, "profile_jobs": 1},
-}
+TINY_DIR = Path(__file__).resolve().parent / "tiny"
+
+
+def tiny_traffic(name: str, *_) -> dict:
+    """The tiny stand-in of traffic mix `name` (spec.traffic's signature)."""
+    return json.loads((TINY_DIR / f"{name}.json").read_text())
 
 
 def run_tiny(monkeypatch, workload: str, *, seed: int = 2**31 + 77, trace: bool = False,
              seconds: float = 0.5) -> dict:
-    """One whole run of `workload` on the CPU with its traffic cut to TINY."""
-    monkeypatch.setattr(spec_mod, "traffic", lambda name: TINY[name])
+    """One whole run of `workload` on the CPU with its traffic cut to its stand-in."""
+    monkeypatch.setattr(spec_mod, "traffic", tiny_traffic)
     return runner.run_cell(spec_mod.load_spec(), workload, seed, seconds, trace, "cpu",
                            time.perf_counter())

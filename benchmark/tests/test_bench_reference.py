@@ -6,7 +6,7 @@ import ast
 import pytest
 import torch
 
-from benchmark.harness import counts, runner, spec as spec_mod
+from benchmark.harness import counts, spec as spec_mod
 from benchmark.harness.program import Program, host_peaks
 from benchmark.harness.traffic import Traffic
 from benchmark.reference import chain as ref_chain
@@ -14,7 +14,7 @@ from benchmark.reference.precision import Precision
 
 SPEC = spec_mod.load_spec()
 CFG = spec_mod.config(SPEC, "resynth_64v")
-RC = runner.reference_config(CFG)
+RC = spec_mod.driver(CFG).reference_config(CFG)
 TINY = {"batch": 1, "take_seconds": [3], "voices": 12, "takes_seed": 2**31 + 5,
         "shuffle_block": 1}
 
@@ -39,16 +39,16 @@ def test_port_agrees_with_reference(job):
 def test_peaks_are_read_only_where_the_tracker_ran_once(job, monkeypatch):
     """The check's peaks come from the tracker's entry; a job during which
     it did not run once raises, and leaves no stale peaks to the check."""
-    from cpp_audio_tpu_torch.analysis import chain
+    from cpp_audio_tpu_torch.analysis import device_tracker
 
     program = Program(CFG, device="cpu")
     program.run_job(job)
-    real = chain.run_offline_chain_device
+    real = device_tracker.build_tables_device
 
     def twice(*a, **k):  # a chain that tracks twice: which peaks are the job's?
         real(*a, **k)
         return real(*a, **k)
-    monkeypatch.setattr(chain, "run_offline_chain_device", twice)
+    monkeypatch.setattr(device_tracker, "build_tables_device", twice)
     with pytest.raises(RuntimeError, match="not once"):
         program.run_job(job)
 

@@ -47,8 +47,8 @@ def test_run_loads_no_jax():
 import sys, time
 sys.path.insert(0, {str(spec_mod.ROOT)!r})
 from benchmark.harness import runner, spec as spec_mod
-from benchmark.tests.bench_tiny import TINY
-spec_mod.traffic = lambda name: TINY[name]
+from benchmark.tests.bench_tiny import tiny_traffic
+spec_mod.traffic = tiny_traffic
 runner.run_cell(spec_mod.load_spec(), "resynth_64v.single_60s", 3, 0.2, False, "cpu",
                 time.perf_counter())
 print(sorted({{m.split(".")[0] for m in sys.modules}}))

@@ -36,8 +36,8 @@ def test_cell_resolves(w):
     assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and w["chips"] in (1, 4)
     assert len(w["why"]) <= 200 and "\n" not in w["why"]
     data = spec_mod.traffic(w["traffic"])
-    assert data["batch"] >= 1 and data["shuffle_block"] % len(data["take_seconds"]) == 0
-    spec_mod.config(SPEC, w["config"])
+    assert int(data["check_jobs"]) >= 1
+    spec_mod.driver(spec_mod.config(SPEC, w["config"]))
     e2e = {m["name"] for m in spec_mod.cell_metrics(SPEC, w["name"], False)}
     assert "setup_s" in e2e and len(e2e) >= 2
     per_layer = spec_mod.cell_metrics(SPEC, w["name"], True)
