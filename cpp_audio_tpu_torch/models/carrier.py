@@ -38,7 +38,9 @@ Port of cpp_audio_tpu/models/carrier.py. The tile render `_carrier_block` is
 plain PyTorch on the synth's device, in the JAX package's arithmetic: the
 sample index and the glide phase in the working dtype, so at float32 the
 phase at large t carries the same rounding as there (PERF.md). Start angles
-are drawn from numpy's default_rng(seed), as there.
+are drawn from numpy's default_rng(seed), as there. Under a torch profiler
+a compute() is the span `live_carrier`, and its tables' uploads count in
+utils/profiling.LIVE_WAITS.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ import torch
 from ..core.events import Event, EventType
 from ..device import HostPickled, dtype_of
 from ..ops import envelopes, noise as noise_ops, oscillators
+from ..utils import profiling
+from ..utils.profiling import span
 
 NEVER = float(2**62)
 
@@ -342,23 +346,25 @@ class CarrierSynth(HostPickled):
     def compute(self, t0: int, n: int) -> torch.Tensor:
         """Render n mono samples covering [t0, t0+n) -> (n,) tensor on the
         synth's device, in the config's dtype."""
-        self._gc(t0)
-        active = list(self._notes.values()) + self._finished
-        cfg = self.config
-        dt = dtype_of(cfg.dtype)
-        if not active:
-            return torch.zeros(n, dtype=dt, device=self.device)
-        fp, ip, vols, pl = self._tables(active)
-        a = cfg.ahdsr
-        return _carrier_block(
-            torch.as_tensor(fp, dtype=dt, device=self.device),
-            torch.as_tensor(ip, device=self.device),
-            torch.as_tensor(vols, dtype=dt, device=self.device),
-            torch.as_tensor(pl, dtype=dt, device=self.device),
-            self._noise_dev, t0, n=n, glide_samples=cfg.glide_samples,
-            a_itp=int(np.asarray(a.attack_itp)),
-            d_itp=int(np.asarray(a.decay_itp)),
-            r_itp=int(np.asarray(a.release_itp)), out_dtype=cfg.dtype)
+        with span("live_carrier", self.device):
+            self._gc(t0)
+            active = list(self._notes.values()) + self._finished
+            cfg = self.config
+            dt = dtype_of(cfg.dtype)
+            if not active:
+                return torch.zeros(n, dtype=dt, device=self.device)
+            fp, ip, vols, pl = self._tables(active)
+            a = cfg.ahdsr
+            profiling.LIVE_WAITS += 4  # the four tables up
+            return _carrier_block(
+                torch.as_tensor(fp, dtype=dt, device=self.device),
+                torch.as_tensor(ip, device=self.device),
+                torch.as_tensor(vols, dtype=dt, device=self.device),
+                torch.as_tensor(pl, dtype=dt, device=self.device),
+                self._noise_dev, t0, n=n, glide_samples=cfg.glide_samples,
+                a_itp=int(np.asarray(a.attack_itp)),
+                d_itp=int(np.asarray(a.decay_itp)),
+                r_itp=int(np.asarray(a.release_itp)), out_dtype=cfg.dtype)
 
     def render(self, n_samples: int, block_size: int = 4096) -> torch.Tensor:
         """Offline render of the current state (no further events)."""

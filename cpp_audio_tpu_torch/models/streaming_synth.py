@@ -21,7 +21,10 @@ Port of cpp_audio_tpu/models/streaming_synth.py. Every pulled block renders
 through voicebank.render_bank, so on a CUDA device each pull launches the
 voice-bank kernel once (one block of n samples, press and release shifted by
 -t0: a note held since long before t0 reaches the kernel with a large
-negative press); on the CPU the kernel's plain version renders it.
+negative press); on the CPU the kernel's plain version renders it. Under a
+torch profiler a pull is the span `live_synth` (the bank's build, its
+tables' upload and the kernel's dispatch), and the uploads count in
+utils/profiling.LIVE_WAITS.
 """
 
 from __future__ import annotations
@@ -34,7 +37,12 @@ import torch
 from ..core import voices as voices_mod
 from ..core.events import Event, EventType
 from ..device import HostPickled, dtype_of
+from ..utils import profiling
+from ..utils.profiling import span
 from . import sine_synth, voicebank
+
+# the host tables voicebank.prepare_bank_arrays uploads: fp, ip, up, gains, codes
+_BANK_TABLES = 5
 
 
 @dataclass
@@ -141,9 +149,11 @@ class StreamingSynth(HostPickled):
     def compute(self, t0: int, n: int) -> torch.Tensor:
         """Render [t0, t0+n) -> (n, n_channels) tensor on the synth's
         device, in the config's dtype."""
-        bank = self.bank_at(t0)
-        if bank is None:
-            return torch.zeros((n, self.config.n_channels),
-                               dtype=dtype_of(self.config.dtype), device=self.device)
-        return voicebank.render_bank(bank, n, block_size=n, dtype=self.config.dtype,
-                                     device=self.device)
+        with span("live_synth", self.device):
+            bank = self.bank_at(t0)
+            if bank is None:
+                return torch.zeros((n, self.config.n_channels),
+                                   dtype=dtype_of(self.config.dtype), device=self.device)
+            profiling.LIVE_WAITS += _BANK_TABLES
+            return voicebank.render_bank(bank, n, block_size=n, dtype=self.config.dtype,
+                                         device=self.device)

@@ -21,8 +21,9 @@ A span records only while a torch profiler is recording (a
 recording span opens a `record_function` range of its name (so the
 profiler's trace shows it, and the device's idle gaps inside it), and
 keeps in SPANS: its name, its parent span, the id of the job or batch it
-belongs to (the latest `chain` span's, or the next one's outside any
-chain), its host start and end (`perf_counter_ns`), on a CUDA device a
+belongs to (the latest `chain` or `duplex` span's: one offline job or
+batch, one live callback; or the next one's outside any of them), its
+host start and end (`perf_counter_ns`), on a CUDA device a
 pair of timing events recorded on the current stream without
 synchronising (resolved when read), and the change of each program
 counter in COUNTERS over the span. Parents and ids follow one thread's
@@ -134,6 +135,15 @@ def string_plot(values, *, height: int = 16, width: int | None = None,
 # "host_waits" and "frame_loops"; ops/cuda_render: "render_launches").
 COUNTERS: dict = {}
 
+# The live path's waits for the device (analysis/streaming,
+# models/streaming_synth, models/carrier add to it): each host array it
+# uploads and each device array it reads back to the host.
+LIVE_WAITS = 0
+COUNTERS["live_waits"] = lambda: LIVE_WAITS
+
+# The spans that open a job id: one offline job or batch, one live callback.
+JOB_SPANS = ("chain", "duplex")
+
 
 class _Off:
     """The span of a stretch with nothing recording."""
@@ -150,7 +160,7 @@ class _Off:
 _OFF = _Off()
 _SINKS: list = []   # timed() sinks, innermost last
 _OPEN: list = []    # the recording spans now open, innermost last
-_CHAIN = [0, 0]     # the latest chain span's id, chain spans now open
+_CHAIN = [0, 0]     # the latest job span's id, job spans now open
 
 
 class SpanRecord:
@@ -243,7 +253,7 @@ class _Span:
 
     def __enter__(self):
         if self.rec:
-            if self.name == "chain":
+            if self.name in JOB_SPANS:
                 _CHAIN[0] += 1
                 _CHAIN[1] += 1
             self.id = _CHAIN[0] if _CHAIN[1] else _CHAIN[0] + 1
@@ -270,7 +280,7 @@ class _Span:
             c1 = _counts()
             self.range.__exit__(*exc)
             _OPEN.remove(self)
-            if self.name == "chain":
+            if self.name in JOB_SPANS:
                 _CHAIN[1] -= 1
             SPANS.add(SpanRecord(self.name, self.parent, self.id, self.t0_ns, t1_ns,
                                  events, {k: c1[k] - v for k, v in self.counts.items()}))
