@@ -52,7 +52,21 @@ Phases (any failure exits non-zero and prints no result):
      workload) on cuda and on the CPU: every count equal.
   5. scan fallback: device_tracker.build_tables_device(_force_scan=True) on
      the headline peaks, timed once beside the frame-parallel tracker; both
-     tables rendered, held at max|diff|/peak < 2e-3.
+     tables rendered, held at max|diff|/peak < 2e-3. Then the frame-loop
+     kernel (ops/cuda_scan, csrc/tracker_scan.cu) against the eager loop
+     (device_tracker._scan_tables_plain) on the card: on the headline lanes
+     forced, in float32 and in float64 (the fidelity chain's peaks), and on
+     the violating take of the benchmark's batch16_60s takes 1056-1071
+     (takes_seed 17, from the mix's own generator, staged by
+     prepare_offline_chain_device_batch and analysed by one step() of it):
+     dropped counts, emit masks and the slot each note takes equal, float
+     fields within 1e-5 (float32) or 1e-12 (float64) of each field's
+     largest magnitude, the two tables' renders within 2e-5 of the peak;
+     that step in 1 kernel launch (cuda_scan.LAUNCHES set to 0 just before
+     it) and 16 frame loops, its tables those of the batch of 16 in one
+     launch, equal to the bit to 16 single launches. `scan_ms` (one 60 s
+     job), `scan_batch_ms` (16 jobs, one launch), `scan_plain_ms` (the
+     eager loop) and `scan_launches` (that step's) on the kernels line.
   6. device reference, 2 s: the device chain on cuda against the same chain
      on the CPU and against the host-tracker chain on cuda (vocoded atol
      1e-4, resynth max|diff|/peak < 2e-3); then use_autotune=True on the JAX
@@ -392,9 +406,10 @@ def cuda_ms_amortized(fn, reps: int = 20, rounds: int = 5) -> float:
 
 def phase_build():
     from cpp_audio_tpu_torch.ops import cuda_render as cr
+    from cpp_audio_tpu_torch.ops import cuda_scan as cs
     from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 
-    for mod in (cv, cr):
+    for mod in (cv, cr, cs):
         t0 = time.perf_counter()
         path, log = mod.build()
         mod.load_library()
@@ -885,15 +900,146 @@ def check_frame_parallel(tag, inputs, kw):
         raise RuntimeError(f"{tag}: the tracker did not take the frame-parallel path")
 
 
-def phase_scan_fallback():
-    """The tracker's two paths on the headline peaks on cuda: the
-    violation flag of the frame-parallel path (must be false, as the JAX
-    headline's), one timed call of each path, and their renders held at
-    max|diff|/peak < 2e-3."""
+def _scan_lanes(inputs, kw):
+    """The exact frame loop's (T, k) lanes of one job's staged tracker
+    inputs (device_tracker._inputs, _prep_lanes), its pools and defaults."""
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+
+    freq, mag, loud_p, loud_s, pan, phase, at = tdt._inputs(
+        *inputs, kw["autotune_arrays"], inputs[0].device)
+    tp, vol, order, _k = tdt._prep_lanes(freq, mag, loud_p, loud_s, at, kw)
+    return (tp, vol, order), (pan, phase), tdt._default_row(freq.dtype, freq.device)
+
+
+def _hold_scan(tag, lanes, F, pools, defaults, kw, render):
+    """The frame-loop kernel against the eager loop (_scan_tables_plain) on
+    the card for one job: dropped counts, emit masks (the rows that are the
+    defaults row) and the slot each note takes equal; float fields within
+    1e-5 (float32) or 1e-12 (float64) of each field's largest magnitude;
+    the two tables' float32 renders within 2e-5 of the peak. Returns the
+    kernel's table and the eager loop's wall (s)."""
     import torch
 
     from cpp_audio_tpu_torch.analysis import device_tracker as tdt
     from cpp_audio_tpu_torch.models import resynth_bank
+
+    tp, vol, order = lanes
+    got_t, got_d = tdt._scan_tables(tp[None], vol[None], order[None], F, *pools,
+                                    defaults, kw)
+    got_t, got_d = got_t[0], got_d[0]
+    plain_s, (want_t, want_d) = _synced_wall(
+        lambda: tdt._scan_tables_plain(tp, vol, order, F, *pools, defaults, kw))
+    emit_g = ~(got_t == defaults).all(-1)
+    emit_w = ~(want_t == defaults).all(-1)
+    press_g = torch.where(emit_g, got_t[..., tdt._F_TP0], 0)
+    press_w = torch.where(emit_w, want_t[..., tdt._F_TP0], 0)
+    scale = want_t.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+    gaps = ((got_t - want_t).abs().amax(dim=(0, 1)) / scale)
+    bits = bool(torch.equal(got_t, want_t))
+    outs = [resynth_bank._render_slots(t.float(), stride=render.stride,
+                                       dtype="float32").reshape(-1, 2)
+            for t in (got_t, want_t)]
+    peak = float(outs[1].abs().max())
+    r_gap = float((outs[0] - outs[1]).abs().max()) / max(peak, 1e-9)
+    bar = 1e-5 if tp.dtype == torch.float32 else 1e-12
+    print(f"[scan kernel] {tag}: {tuple(got_t.shape)} {tp.dtype}, lanes {tp.shape[-1]}; "
+          f"dropped {int(got_d)} / eager {int(want_d)}; emitted rows {int(emit_g.sum())} / "
+          f"{int(emit_w.sum())}, masks equal {bool(torch.equal(emit_g, emit_w))}, slots' "
+          f"presses equal {bool(torch.equal(press_g, press_w))}; equal to the bit {bits}; "
+          f"largest field gap / field max {float(gaps.max()):.3e} (field "
+          f"{int(gaps.argmax())}; bar {bar:g}); renders max|diff|/peak {r_gap:.3e} (peak "
+          f"{peak:.4f}, bar 2e-5); eager loop {plain_s:.3f} s")
+    if not (int(got_d) == int(want_d) and torch.equal(emit_g, emit_w)
+            and torch.equal(press_g, press_w) and float(gaps.max()) <= bar
+            and r_gap <= 2e-5 and peak > 1e-3):
+        raise RuntimeError(f"{tag}: the frame-loop kernel disagrees with the eager loop")
+    return got_t, plain_s
+
+
+def _violating_batch(dev, first=1056, count=16):
+    """The benchmark's 60 s takes `first`..`first + count - 1` of the
+    `batch16_60s` mix (takes_seed 17: a batch in which one take sets the
+    violation flag), taken from the mix's own generator (Traffic.job) and run
+    through the serving path: prepare_offline_chain_device_batch, then one
+    step(), with cuda_scan.LAUNCHES set to 0 just before it. The peaks and
+    arguments the step hands to build_tables_device_batch, and its tables,
+    are kept. Returns (takes, reading): per take its lanes, pools, defaults,
+    keywords, render config and whether the frame-parallel tracker's
+    violation flag is set for it; the step's kernel launches, frame loops,
+    tables and dropped counts."""
+    import torch
+
+    from benchmark.harness import program, traffic
+    from cpp_audio_tpu_torch.analysis import chain, resynth
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+    from cpp_audio_tpu_torch.models.voicebank import VoiceBank
+    from cpp_audio_tpu_torch.ops import cuda_scan
+
+    with open("benchmark/configs/resynth_64v.json") as fh:
+        config = json.load(fh)
+    with open("benchmark/traffic/batch16_60s.json") as fh:
+        mix = traffic.Traffic(json.load(fh), config, seed=0)
+    block = first // mix.block
+    jobs = sorted((mix.job(i) for i in range(block * mix.block, (block + 1) * mix.block)),
+                  key=lambda j: j["take"])
+    jobs = [j for j in jobs if first <= j["take"] < first + count]
+    if [j["take"] for j in jobs] != list(range(first, first + count)):
+        raise RuntimeError(f"takes {first}-{first + count - 1} are not one shuffle block")
+    rconfig, vparams = program.program_configs(config)
+    step, _n_frames = chain.prepare_offline_chain_device_batch(
+        [VoiceBank(**j["voices"]) for j in jobs], jobs[0]["n"], rconfig, vparams,
+        jobs[0]["carrier"], block_size=config["synth"]["block_size"], device=dev)
+    plain, kept = tdt.build_tables_device_batch, {}
+
+    def keeping(freq, mag, *args, **kw):
+        kept.update(freq=freq, mag=mag, arrays=args, kw=kw)
+        kept["out"] = plain(freq, mag, *args, **kw)
+        return kept["out"]
+
+    tdt.build_tables_device_batch = keeping
+    try:
+        torch.cuda.synchronize()
+        loops = tdt.FRAME_LOOPS
+        cuda_scan.LAUNCHES = 0
+        step()
+        torch.cuda.synchronize()
+        reading = dict(launches=cuda_scan.LAUNCHES, loops=tdt.FRAME_LOOPS - loops,
+                       tables=kept["out"][0], dropped=kept["out"][1])
+    finally:
+        tdt.build_tables_device_batch = plain
+    kw = {n: v for n, v in kept["kw"].items() if n != "device"}
+    render = resynth._render_config(rconfig)
+    takes = []
+    for b, job in enumerate(jobs):
+        freq, mag = kept["freq"][b], kept["mag"][b]
+        lanes, pools, defaults = _scan_lanes((freq, mag, *kept["arrays"]), kw)
+        _table, viol = tdt._parallel_tables(*lanes, freq.shape[0], *pools, defaults, kw)
+        takes.append(dict(take=job["take"], frames=int(freq.shape[0]), kw=kw,
+                          render=render, lanes=lanes, pools=pools, defaults=defaults,
+                          violates=bool(viol)))
+    torch.cuda.synchronize()
+    return takes, reading
+
+
+def phase_scan_fallback() -> dict:
+    """The tracker's two paths on the headline peaks on cuda: the
+    violation flag of the frame-parallel path (must be false, as the JAX
+    headline's), one timed call of each path, and their renders held at
+    max|diff|/peak < 2e-3. Then the frame-loop kernel (ops/cuda_scan)
+    against the eager loop on the card (_hold_scan): on the headline lanes
+    (forced) in float32 and in float64 (the fidelity chain's peaks), and on
+    the violating take of the benchmark's batch of takes 1056-1071, as one
+    serving step analyses it (_violating_batch); that step in 1 launch and
+    16 frame loops, its tables the batch launch's, whose 16 jobs equal to
+    the bit 16 single launches. Times: `scan_ms` (one 60 s job, amortized),
+    `scan_batch_ms` (16 jobs, one launch, amortized), `scan_plain_ms` (the
+    eager loop, one job, one synchronised call); `scan_launches` (the
+    serving step's launches)."""
+    import torch
+
+    from cpp_audio_tpu_torch.analysis import device_tracker as tdt
+    from cpp_audio_tpu_torch.models import resynth_bank
+    from cpp_audio_tpu_torch.ops import cuda_scan
 
     n = int(SR * SECONDS)
     sch, cfg = make_synth_workload(SR, n)
@@ -930,6 +1076,65 @@ def phase_scan_fallback():
     if not (d_scan == d_par == 0 and peak > 1e-3 and rel < 2e-3):
         raise RuntimeError("the scan fallback disagrees with the frame-parallel tracker")
     _frame_local_memory(inputs, kw)
+
+    F = int(inputs[0].shape[0])
+    lanes, pools, defaults = _scan_lanes(inputs, kw)
+    _hold_scan("headline, forced", lanes, F, pools, defaults, kw, render)
+    inputs64, kw64, render64 = headline_tracker_inputs(n, sch, cfg, "cuda", dtype="df32")
+    lanes64, pools64, defaults64 = _scan_lanes(inputs64, kw64)
+    _hold_scan("headline float64 (fidelity peaks), forced", lanes64,
+               int(inputs64[0].shape[0]), pools64, defaults64, kw64, render64)
+
+    takes, step = _violating_batch("cuda")
+    bad = [t for t in takes if t["violates"]]
+    print(f"[scan kernel] benchmark takes {takes[0]['take']}-{takes[-1]['take']} "
+          f"(batch16_60s, takes_seed 17): violation flag set on takes "
+          f"{[t['take'] for t in bad]}")
+    if not bad:
+        raise RuntimeError("no take of the batch sets the violation flag")
+    scan_launches = step["launches"]
+    print(f"[scan kernel] one step() of prepare_offline_chain_device_batch on them: "
+          f"{scan_launches} frame-loop kernel launch, {step['loops']} frame loops")
+    if not (scan_launches == 1 and step["loops"] == len(takes)):
+        raise RuntimeError("the serving step did not take the frame loop in one launch "
+                           "for the whole batch")
+    plain_s = None
+    for t in bad:
+        _table, wall = _hold_scan(f"take {t['take']} (violating)", t["lanes"],
+                                  t["frames"], t["pools"], t["defaults"], t["kw"],
+                                  t["render"])
+        plain_s = wall if plain_s is None else plain_s
+    one = bad[0]
+    F1 = one["frames"]
+    stack = [torch.stack([t["lanes"][i] for t in takes]) for i in range(3)]
+
+    def kernel_one():
+        return cuda_scan.scan_tables_cuda(*(a[None] for a in one["lanes"]), F1,
+                                          *one["pools"], one["defaults"], one["kw"])
+
+    def kernel_batch():
+        return cuda_scan.scan_tables_cuda(*stack, F1, *one["pools"], one["defaults"],
+                                          one["kw"])
+
+    b_t, b_d = kernel_batch()
+    for i, t in enumerate(takes):
+        s_t, s_d = cuda_scan.scan_tables_cuda(*(a[None] for a in t["lanes"]), F1,
+                                              *t["pools"], t["defaults"], t["kw"])
+        if not (torch.equal(b_t[i], s_t[0]) and torch.equal(b_d[i], s_d[0])):
+            raise RuntimeError(f"take {t['take']}: its slice of the batch launch is not "
+                               "its own launch")
+    if not (torch.equal(step["tables"], b_t) and torch.equal(step["dropped"], b_d)):
+        raise RuntimeError("the serving step's tables are not the batch launch's")
+    print(f"[scan kernel] the batch of {len(takes)} in one launch equals {len(takes)} "
+          f"single launches to the bit, and the serving step's tables are that launch's")
+    scan_ms = cuda_ms_amortized(kernel_one, reps=10)
+    scan_batch_ms = cuda_ms_amortized(kernel_batch, reps=5)
+    print(f"[scan kernel] scan_ms {scan_ms:.4f} (one {F1 + 8}-frame job, amortized), "
+          f"scan_batch_ms {scan_batch_ms:.4f} (16 jobs, one launch, amortized), "
+          f"scan_plain_ms {plain_s * 1e3:.1f} (the eager loop, one synchronised call), "
+          f"scan_launches {scan_launches} (in one serving step of the violating batch)")
+    return {"scan_ms": scan_ms, "scan_batch_ms": scan_batch_ms,
+            "scan_plain_ms": plain_s * 1e3, "scan_launches": scan_launches}
 
 
 def _frame_local_memory(inputs, kw, batch: int = 8):
@@ -3445,32 +3650,24 @@ def _instrumented(run) -> dict:
     wall, output, voice-bank kernel launches (the count set to 0 just
     before, read just after), the device tracker's host syncs, the
     tracker's path (the frame-parallel tracker, or the exact frame loop,
-    device_tracker._scan_tables, run when the violation flag is set) and
-    the peak device memory above what was held before it."""
+    device_tracker._scan_tables, run when the violation flag is set: the
+    tables it built, FRAME_LOOPS) and the peak device memory above what was
+    held before it."""
     import torch
 
     from cpp_audio_tpu_torch.analysis import device_tracker as tdt
     from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 
-    plain, loops = tdt._scan_tables, []
-
-    def scan(*a, **k):
-        loops.append(1)
-        return plain(*a, **k)
-
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    tdt._scan_tables = scan
-    syncs = tdt.HOST_SYNCS
+    syncs, loops = tdt.HOST_SYNCS, tdt.FRAME_LOOPS
     cv.LAUNCHES = 0
-    try:
-        wall, out = _synced_wall(run)
-    finally:
-        tdt._scan_tables = plain
+    wall, out = _synced_wall(run)
+    loops = tdt.FRAME_LOOPS - loops
     return {"wall": wall, "out": out, "launches": cv.LAUNCHES,
             "syncs": tdt.HOST_SYNCS - syncs,
-            "path": f"exact frame loop ({len(loops)} tables)" if loops else "frame-parallel",
+            "path": f"exact frame loop ({loops} tables)" if loops else "frame-parallel",
             "peak": torch.cuda.max_memory_allocated() - held, "held": held}
 
 
@@ -3785,7 +3982,7 @@ def main() -> int:
         launches = phase_chain(card)
         phase_small_reference()
         launches_device = phase_device_chain(card)
-        phase_scan_fallback()
+        scan_measured = phase_scan_fallback()
         phase_device_reference()
         launches_df = phase_df_chain(card)
         phase_df_fidelity()
@@ -3816,6 +4013,12 @@ def main() -> int:
         "source": "cpp_audio_tpu_torch/csrc/tracked_render.cu",
         "replaces": None,
         **render_measured,
+    }, {
+        "name": "tracker_scan",
+        "route": "cuda",
+        "source": "cpp_audio_tpu_torch/csrc/tracker_scan.cu",
+        "replaces": None,
+        **scan_measured,
     }]}
     print(json.dumps(kernels))
     print(card)

@@ -396,9 +396,13 @@ def _tracker_inputs(rconfig, rcfg, n_frames: int, draws, wdt, dev):
     included, for n_frames analysis frames. The pools go as float32 (the
     tracker casts them to its working dtype), as in JAX chain.py:525-526,
     :568-569; draws=None takes the pools that match the host tracker's RNG
-    sequence."""
+    sequence. It readies the tracker for `dev` (device_tracker.ready: on a
+    CUDA device the frame-loop kernel's library is loaded here), so that no
+    build or load lands inside a job whose tracker takes the exact frame
+    loop."""
     from ..utils import loudness
 
+    device_tracker.ready(dev)
     if draws is None:
         draws = resynth_mod.draw_pools(rconfig,
                                        n_frames * rconfig.max_voices + 16)

@@ -31,7 +31,9 @@ group sums stay one-hot contractions (`_group_sum`), so the card adds them
 in a fixed order and gives the same table on every run; the boolean matrix
 squaring of the jump graph is pointer doubling of the jump map; `lax.cond`
 on the violation flag reads that one flag on the host (counted in
-HOST_SYNCS) and runs one branch; `lax.scan` over frames is a Python loop.
+HOST_SYNCS) and runs one branch; `lax.scan` over frames is a Python loop
+on the CPU (`_scan_tables_plain`) and, on the card, one launch of a CUDA
+kernel for every job of the call (ops/cuda_scan).
 `.at[i].set(..., mode="drop")` writes go through a spare row that is
 sliced off (or, for per-slot state, kept as row P and never read), so the
 only duplicate targets are that spare row. The working dtype follows the
@@ -50,6 +52,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops import cuda_scan
 from ..utils import profiling
 
 FAR = 1e12
@@ -975,12 +978,11 @@ def _track_step(c: _ScanCarry, tpitch, volume, loud_order, f_idx: int,
     return row_block
 
 
-def _scan_tables(tpitch, volume, loud_order, n_data_frames, pan_draws,
-                 phase_draws, defaults, kw):
-    """(table, dropped) via the frame loop (the exact path: voice-cap drops,
-    slot overflow, long tails, min_volume <= 0)."""
-    global FRAME_LOOPS
-    FRAME_LOOPS += 1
+def _scan_tables_plain(tpitch, volume, loud_order, n_data_frames, pan_draws,
+                       phase_draws, defaults, kw):
+    """One job's (T, k) lanes -> ((T, P, 16) table, dropped) via the frame
+    loop in plain PyTorch, one `_track_step` a frame (the exact path:
+    voice-cap drops, slot overflow, long tails, min_volume <= 0)."""
     P = kw["n_slots"]
     total_frames = kw["total_frames"]
     statics = (float(kw["stride"]), float(kw["sample_rate"]),
@@ -995,6 +997,35 @@ def _scan_tables(tpitch, volume, loud_order, n_data_frames, pan_draws,
                         f < n_data_frames, defaults, P=P, Q=_Q, statics=statics)
             for f in range(total_frames)]
     return torch.stack(rows), carry.dropped
+
+
+def ready(device) -> None:
+    """Loads the exact frame loop's kernel library (built once) when
+    `device` is a CUDA device, so that no build or load lands inside a job
+    whose tables take the loop; nothing on other devices."""
+    if torch.device(device).type == "cuda":
+        cuda_scan.load_library()
+
+
+def _scan_tables(tpitch, volume, loud_order, n_data_frames, pan_draws,
+                 phase_draws, defaults, kw):
+    """(B, T, k) lanes of B jobs -> ((B, T, P, 16) tables, (B,) dropped) via
+    the exact frame loop. CPU tensors take _scan_tables_plain job by job;
+    CUDA tensors one launch of the frame-loop kernel for every job
+    (ops/cuda_scan, csrc/tracker_scan.cu), or an exception."""
+    global FRAME_LOOPS
+    FRAME_LOOPS += tpitch.shape[0]
+    if tpitch.device.type == "cuda":
+        return cuda_scan.scan_tables_cuda(tpitch, volume, loud_order,
+                                          n_data_frames, pan_draws, phase_draws,
+                                          defaults, kw)
+    if tpitch.device.type != "cpu":
+        raise ValueError(f"no exact frame loop for tensors on {tpitch.device}")
+    scans = [_scan_tables_plain(tpitch[b], volume[b], loud_order[b],
+                                n_data_frames, pan_draws, phase_draws, defaults, kw)
+             for b in range(tpitch.shape[0])]
+    return (torch.stack([t for t, _ in scans]),
+            torch.stack([d for _, d in scans]))
 
 
 def _inputs(freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws,
@@ -1017,8 +1048,9 @@ def build_tables_device_batch(freq, mag_db, loud_pitches, loud_spl,
     The frame-local stage runs once over all jobs' frames; the parallel
     tracker runs per job; the violation is hoisted over the batch (any job
     violating sends every job down the frame loop, one flag read per
-    batch). min_volume <= 0 routes the whole batch down the frame loop (the
-    parallel tracker's played-set identity needs min_volume > 0).
+    batch; the loop takes every job in one call of _scan_tables, on the
+    card one launch). min_volume <= 0 routes the whole batch down the frame
+    loop (the parallel tracker's played-set identity needs min_volume > 0).
     """
     global HOST_SYNCS
     autotune_arrays = kw.pop("autotune_arrays", None)
@@ -1037,10 +1069,8 @@ def build_tables_device_batch(freq, mag_db, loud_pitches, loud_spl,
         if not bool(torch.stack([v for _, v in par]).any()):
             return (torch.stack([t for t, _ in par]),
                     torch.zeros((B,), dtype=torch.int64, device=freq.device))
-    scans = [_scan_tables(tpitch[b], volume[b], loud_order[b], F, pan_draws,
-                          phase_draws, defaults, kw) for b in range(B)]
-    return (torch.stack([t for t, _ in scans]),
-            torch.stack([d for _, d in scans]))
+    return _scan_tables(tpitch, volume, loud_order, F, pan_draws, phase_draws,
+                        defaults, kw)
 
 
 def build_tables_device(freq, mag_db, loud_pitches, loud_spl, pan_draws,
@@ -1102,8 +1132,9 @@ def build_tables_device(freq, mag_db, loud_pitches, loud_spl, pan_draws,
         HOST_SYNCS += 1
         if not bool(viol):
             return table, torch.zeros((), dtype=torch.int64, device=freq.device)
-    return _scan_tables(tpitch, volume, loud_order, F, pan_draws, phase_draws,
-                        defaults, kw)
+    table, dropped = _scan_tables(tpitch[None], volume[None], loud_order[None], F,
+                                  pan_draws, phase_draws, defaults, kw)
+    return table[0], dropped[0]
 
 
 def split_increment(table: torch.Tensor) -> torch.Tensor:

@@ -134,7 +134,8 @@ def test_host_waits_are_the_counters_by_hand():
     assert copies == recs["vocoder"].counts["host_waits"] == ARGS[1].count_bands
     assert recs["tracker"].counts["host_waits"] == 1
     assert recs["staging"].counts == {"host_waits": 0, "frame_loops": 0,
-                                      "render_launches": 0, "live_waits": 0}
+                                      "render_launches": 0, "live_waits": 0,
+                                      "scan_launches": 0}
     # the CPU's render is the kernel's plain twin: no launch in any span;
     # the offline chain makes none of the live path's waits
     assert all(r.counts["render_launches"] == 0 for r in recs.values())
