@@ -199,7 +199,7 @@ Phases (any failure exits non-zero and prints no result):
      each of run_offline_chain_device at the headline width (float32 and
      the df chain), resynthesize of J1's gained voice, J1 end to end and
      make_sharded_chain at world 1 (one NCCL rank), every output, the
-     device tracker's tables (recorded around build_tables_device) and the
+     device tracker's tables (recorded around its entries) and the
      dropped counts held against the first run's to the bit; one line per
      path with max|diff|, the tables' and dropped's equality and the kernel
      launches (`launches_repro`: the float32 chain's 5 runs); and the
@@ -866,12 +866,7 @@ def headline_tracker_inputs(n, sch, cfg, dev, dtype="float32"):
     bank, rcfg, vparams, carrier = _chain_inputs(n, sch, cfg, dtype)
     bank_args, av_args, av_kw = chain._stage_analyze_vocode(
         bank, n, rcfg, vparams, carrier, cfg.block_size, dev)
-    if dtype == "df32":
-        freq, mag, _mix = chain._fused_analyze_vocode_df(
-            *bank_args, *av_args, df_mode=chain.DF_ANALYSIS_MODE, **av_kw)
-    else:
-        freq, mag, _mix = chain._fused_analyze_vocode(*bank_args, *av_args,
-                                                      **av_kw)
+    freq, mag, _mix = chain._analyze_vocode(*bank_args, *av_args, **av_kw)
     render = resynth._render_config(rcfg)
     arrays, kw = chain._tracker_inputs(rcfg, render, int(freq.shape[0]), None,
                                        freq.dtype, dev)
@@ -880,8 +875,8 @@ def headline_tracker_inputs(n, sch, cfg, dev, dtype="float32"):
 
 def check_frame_parallel(tag, inputs, kw):
     """The violation flag of the frame-parallel tracker on `inputs` (read
-    through device_tracker._prep_lanes / _parallel_tables, as
-    build_tables_device reads it); fails unless it is false, as the JAX
+    through device_tracker._prep_lanes / _parallel_tables, as its
+    entries read it); fails unless it is false, as the JAX
     headline's."""
     from cpp_audio_tpu_torch.analysis import device_tracker as tdt
 
@@ -3473,13 +3468,14 @@ def rank_tracker_table() -> dict:
 
 @contextlib.contextmanager
 def _recorded_tables():
-    """Context: every device_tracker.build_tables_device call (the chains',
-    the fidelity tracker's through build_tables_device_df, resynthesize's,
-    the mesh's) and build_tables_device_batch call (the batched serving
+    """Context: every call of a device_tracker entry (build_tables_device:
+    the chains', resynthesize's, the mesh's; build_tables_device_df: the
+    fidelity chain's; build_tables_device_batch: the batched serving
     step's) appends its (table, dropped) to the yielded list."""
     from cpp_audio_tpu_torch.analysis import device_tracker as tdt
 
-    names = ("build_tables_device", "build_tables_device_batch")
+    names = ("build_tables_device", "build_tables_device_df",
+             "build_tables_device_batch")
     plain, calls = {name: getattr(tdt, name) for name in names}, []
 
     def recording(fn):

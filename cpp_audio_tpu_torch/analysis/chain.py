@@ -19,13 +19,14 @@ Port of cpp_audio_tpu/analysis/chain.py, with its two trackers:
     Eager PyTorch dispatches op by op; "single dispatch" names the JAX
     program this mirrors, not a property of the port.
 The single-dispatch chain has two variants, as in the JAX package: the
-float32 (or float64) chain, and the fidelity chain (dtype "df32",
+float32 (or float64) chain, and the fidelity chain (dtype "df32", JAX's
 _fused_single_dispatch_df, :404): synth and vocoder float32, double-grade
 analysis peaks, the device tracker and the render's phase advance at float64.
 The JAX package carries those double-grade values as df32 (hi, lo) pairs
 because the TPU has no float64; here they are float64 inside.
-Both variants share the synth and vocoder legs (`_synth_mono`,
-`_vocode_mix`).
+One step (`_step`) runs both variants, for one job or for a batch of jobs
+on a leading axis, which every stage's op takes; the variants differ only
+in the analysis (`_peaks`) and in the tracker's entry (`_track`).
 
 Spans (utils/profiling.span): a "chain" span around each
 run_offline_chain(_device) call and each batched step(), a "staging" span
@@ -74,8 +75,8 @@ class OfflineChainResult:
 
 
 def _synth_dtype(rconfig) -> str:
-    """The synth's and the vocoder's dtype: float32 in the fidelity chain
-    (JAX chain.py:126-136, :149-158), else the config's."""
+    """The synth's, the vocoder's and the render's output dtype: float32 in
+    the fidelity chain (JAX chain.py:126-136, :149-158), else the config's."""
     return "float32" if rconfig.dtype == "df32" else rconfig.dtype
 
 
@@ -85,8 +86,7 @@ def _stage_analyze_vocode(bank, n_samples: int,
                           block_size: int, dev, mod_mode=None):
     """The synth, analysis and vocoder legs' tensors on `dev` and their
     static keywords: (bank_args, av_args, av_kw) for
-    `_fused_analyze_vocode(*bank_args, *av_args, **av_kw)`, or for
-    `_fused_analyze_vocode_df` when rconfig.dtype is "df32". mod_mode: the
+    `_analyze_vocode(*bank_args, *av_args, **av_kw)`. mod_mode: the
     vocoder's modulator path (vocoder._modulator_band_amps_fast's mode).
     `bank` may be a list of VoiceBanks: a batch of jobs, every voice table
     with a leading job axis (voicebank.prepare_bank_arrays)."""
@@ -104,7 +104,8 @@ def _analyze_vocode_inputs(n_samples: int, rconfig: resynth_mod.ResynthConfig,
     keywords. The tensors are (window, carrier, band matrix, modulator
     rows); the fidelity chain's are (window, unit-sine scale, carrier, band
     matrix, rows), with the analysis window and its scale (2 / sum(w))^2
-    float64 (JAX chain.py:515-518) and the rest float32."""
+    float64 (JAX chain.py:515-518) and the rest float32, and its keyword
+    df_mode is the analysis mode DF_ANALYSIS_MODE (None elsewhere)."""
     vdt = dtype_of(_synth_dtype(rconfig))
     sr = rconfig.sample_rate
     S = vparams.stride
@@ -137,7 +138,8 @@ def _analyze_vocode_inputs(n_samples: int, rconfig: resynth_mod.ResynthConfig,
                  vol_car=float(vparams.volume_carrier),
                  vol_voc=float(vparams.volume_vocoded),
                  edges=tuple(float(e) for e in edges), mod_mode=mod_mode,
-                 mod_shape=vparams.modulator_window_shape)
+                 mod_shape=vparams.modulator_window_shape,
+                 df_mode=DF_ANALYSIS_MODE if rconfig.dtype == "df32" else None)
     return (*analysis, car, bm_car, rows), av_kw
 
 
@@ -171,62 +173,55 @@ def _vocode_mix(mono, carrier, bm_car, rows, *, sample_rate: int,
             + vol_car * carrier[..., :out_len])
 
 
-def _fused_analyze_vocode(fp, ip, up, gains, codes, window, carrier, bm_car,
-                          rows, *, n: int, block_size: int, n_blocks: int,
-                          window_size: int, stride: int, fft_len: int, k: int,
-                          **voc_kw):
-    """Synth -> mono mixdown -> STFT top-k peaks, and the vocoder of the
-    mixdown (JAX chain.py:46-95), in the spans "synth", "analysis" and
-    "vocoder". Returns (freq, mag_db, vocoder mix). Tables with a leading
-    job axis run B jobs as one batch: one kernel launch, one batched STFT
-    and top-k, one batched vocoder -> (B, F, k) peaks and (B, m) mixes."""
-    dev = fp.device
-    with span("synth", dev):
-        mono = _synth_mono(fp, ip, up, gains, codes, n=n, block_size=block_size,
-                           n_blocks=n_blocks)
-    with span("analysis", dev):
+def _peaks(mono, window, scale=None, *, window_size: int, stride: int,
+           fft_len: int, k: int, sample_rate: int, df_mode=None):
+    """The STFT top-k peaks (freq, mag_db) of a mono signal, (F, k). With
+    df_mode None: stft._stft_sqmag and _top_peaks in the window's dtype,
+    (B, F, k) for a (B, n) batch. Else the fidelity chain's double-grade
+    peaks (JAX chain.py:104), float64 inside, from a float64 window and its
+    scale (2 / sum(window))^2 (0-d): df_mode "hybrid" selects peaks from
+    the float32 rfft spectrum and evaluates the selected bins in float64
+    (ops/dfft_hybrid.hybrid_peaks_df32); "ladder" selects and evaluates on
+    the float64 spectrum (ops/stft._top_peaks_df)."""
+    if df_mode is None:
         sq = stft_ops._stft_sqmag(mono, window, window_size=window_size,
                                   stride=stride, fft_length=fft_len)
-        freq, mag = stft_ops._top_peaks(sq, sample_rate=voc_kw["sample_rate"],
-                                        fft_length=fft_len, k=k)
-    with span("vocoder", dev):
-        mix = _vocode_mix(mono, carrier, bm_car, rows, **voc_kw)
-    return freq, mag, mix
+        return stft_ops._top_peaks(sq, sample_rate=sample_rate,
+                                   fft_length=fft_len, k=k)
+    if df_mode == "hybrid":
+        return dfft_hybrid.hybrid_peaks_df32(
+            mono, window, scale, window_size=window_size, stride=stride,
+            fft_length=fft_len, sample_rate=sample_rate, k=k)
+    if df_mode == "ladder":
+        n_frames = max(0, (mono.shape[-1] - window_size) // stride + 1)
+        frames = stft_ops.frame_signal(mono, window_size, stride, n_frames)
+        sq = stft_ops.frames_sqmag_f64(frames, window, scale,
+                                       fft_length=fft_len)
+        return stft_ops._top_peaks_df(sq, sample_rate=sample_rate,
+                                      fft_length=fft_len, k=k)
+    raise ValueError(f"unknown df analysis mode {df_mode!r}")
 
 
-def _fused_analyze_vocode_df(fp, ip, up, gains, codes, window, scale, carrier,
-                             bm_car, rows, *, n: int, block_size: int,
-                             n_blocks: int, window_size: int, stride: int,
-                             fft_len: int, k: int, df_mode: str = "hybrid",
-                             **voc_kw):
-    """The fidelity chain's synth -> analysis, and the vocoder (JAX
-    chain.py:104): the synth renders and the vocoder runs in float32; the
-    analysis peaks are double-grade, float64 inside. df_mode "hybrid"
-    selects peaks from the float32 rfft spectrum and evaluates the selected
-    bins in float64 (ops/dfft_hybrid.hybrid_peaks_df32); "ladder" selects
-    and evaluates on the float64 spectrum (ops/stft._top_peaks_df).
-    window: float64 (W,); scale: 0-d float64, (2 / sum(window))^2.
-    Returns (freq, mag_db) float64 (F, k) and the float32 vocoder mix;
-    spans as in _fused_analyze_vocode."""
+def _analyze_vocode(fp, ip, up, gains, codes, *args, n: int, block_size: int,
+                    n_blocks: int, window_size: int, stride: int, fft_len: int,
+                    k: int, df_mode=None, **voc_kw):
+    """Synth -> mono mixdown -> STFT top-k peaks, and the vocoder of the
+    mixdown (JAX chain.py:46-95, :104), in the spans "synth", "analysis"
+    and "vocoder". args: the analysis tensors (_peaks' window, or window and
+    scale), carrier, band matrix, modulator rows (_analyze_vocode_inputs).
+    Returns (freq, mag_db, vocoder mix); the fidelity chain's synth and
+    vocoder run in float32, its peaks are float64. Tables with a leading
+    job axis run B jobs as one batch: one kernel launch, one batched STFT
+    and top-k, one batched vocoder -> (B, F, k) peaks and (B, m) mixes."""
+    *analysis, carrier, bm_car, rows = args
     dev = fp.device
     with span("synth", dev):
         mono = _synth_mono(fp, ip, up, gains, codes, n=n, block_size=block_size,
                            n_blocks=n_blocks)
-    sr = voc_kw["sample_rate"]
     with span("analysis", dev):
-        if df_mode == "hybrid":
-            freq, mag = dfft_hybrid.hybrid_peaks_df32(
-                mono, window, scale, window_size=window_size, stride=stride,
-                fft_length=fft_len, sample_rate=sr, k=k)
-        elif df_mode == "ladder":
-            n_frames = max(0, (n - window_size) // stride + 1)
-            frames = stft_ops.frame_signal(mono, window_size, stride, n_frames)
-            sq = stft_ops.frames_sqmag_f64(frames, window, scale,
-                                           fft_length=fft_len)
-            freq, mag = stft_ops._top_peaks_df(sq, sample_rate=sr,
-                                               fft_length=fft_len, k=k)
-        else:
-            raise ValueError(f"unknown df analysis mode {df_mode!r}")
+        freq, mag = _peaks(mono, *analysis, window_size=window_size,
+                           stride=stride, fft_len=fft_len, k=k,
+                           sample_rate=voc_kw["sample_rate"], df_mode=df_mode)
     with span("vocoder", dev):
         mix = _vocode_mix(mono, carrier, bm_car, rows, **voc_kw)
     return freq, mag, mix
@@ -264,7 +259,7 @@ def _host_chain_front(bank, n_samples, rconfig, vparams, carrier, block_size,
     with span("staging", dev):
         bank_args, av_args, av_kw = _stage_analyze_vocode(
             bank, n_samples, rconfig, vparams, carrier, block_size, dev)
-    freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, **av_kw)
+    freq, mag, mix = _analyze_vocode(*bank_args, *av_args, **av_kw)
     with span("tracker", dev):
         freq_h = freq.cpu().numpy()
         n_frames = int(freq_h.shape[0])
@@ -425,59 +420,41 @@ def _tracker_call_kwargs(rconfig, rcfg, n_frames: int, at_arrays) -> dict:
                 **tracker_config_kwargs(rconfig, rcfg))
 
 
-def _front(bank_args, av_args, tracker_args, *, av_kw: dict, tr_kw: dict,
-           df: bool, df_mode: str = "hybrid"):
-    """The chain up to its slot table: synth -> analysis peaks -> device
-    tracker, plus the vocoder; the fidelity chain's (df: float64 peaks in
-    the analysis mode df_mode, the float64 tracker) or the config dtype's.
-    Returns (freq, mag, mix, table, dropped); the first four stages'
-    spans."""
-    if df:
-        freq, mag, mix = _fused_analyze_vocode_df(
-            *bank_args, *av_args, df_mode=df_mode, **av_kw)
+def _track(freq, mag, tracker_args, tr_kw: dict, rconfig):
+    """The device tracker's (table, dropped) of the peaks: (B, F, k) go to
+    build_tables_device_batch, (F, k) to build_tables_device_df in the
+    fidelity chain and to build_tables_device otherwise. The entry is
+    looked up on device_tracker at each call, so that a wrapper set there
+    (the benchmark's harness keeps the peaks through one) sees every call."""
+    if freq.dim() == 3:
+        build = device_tracker.build_tables_device_batch
+    elif rconfig.dtype == "df32":
         build = device_tracker.build_tables_device_df
     else:
-        freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, **av_kw)
         build = device_tracker.build_tables_device
+    return build(freq, mag, *tracker_args, device=freq.device, **tr_kw)
+
+
+def _step(bank_args, av_args, tracker_args, *, av_kw: dict, tr_kw: dict,
+          rconfig, emit: str = "render"):
+    """The whole offline chain on the device, for one job or for a batch of
+    jobs on a leading axis: synth -> peaks -> device tracker -> tracked-note
+    render, plus the vocoder (JAX chain.py:358-394; the fidelity chain's,
+    :404), in the five stages' spans. Returns (framed stereo (..., F, S, 2),
+    vocoder mix, dropped) tensors. The fidelity chain (dtype "df32") tracks
+    into a 17-field float64 table and renders it to float32 with the phase
+    advance in float64; its emit="table" returns the (total_frames,
+    n_slots, 17) table in place of the render (the note-level metric's
+    input), with no render span."""
+    freq, mag, mix = _analyze_vocode(*bank_args, *av_args, **av_kw)
     with span("tracker", freq.device):
-        table, dropped = build(freq, mag, *tracker_args, device=freq.device,
-                               **tr_kw)
-    return freq, mag, mix, table, dropped
-
-
-def _fused_single_dispatch(bank_args, av_args, tracker_args, *, av_kw: dict,
-                           tr_kw: dict, dtype: str):
-    """The whole offline chain on the device: synth -> STFT -> peaks ->
-    device tracker -> tracked-note render, plus the vocoder (JAX
-    chain.py:358-394), in the five stages' spans. Returns (framed stereo
-    (F, S, 2), vocoder mix, dropped) tensors."""
-    _freq, _mag, mix, table, dropped = _front(
-        bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw, df=False)
+        table, dropped = _track(freq, mag, tracker_args, tr_kw, rconfig)
+    if emit == "table":
+        return table, mix, dropped
     # (F, S, 2): the JAX program's channel-major (2, F, S) was a TPU layout
     with span("render", table.device):
         out = resynth_bank._render_slots(table, stride=tr_kw["stride"],
-                                         dtype=dtype)
-    return out, mix, dropped
-
-
-def _fused_single_dispatch_df(bank_args, av_args, tracker_args, *,
-                              av_kw: dict, tr_kw: dict,
-                              df_mode: str = "hybrid", emit: str = "render"):
-    """The fidelity chain on the device (JAX chain.py:404): synth (float32,
-    the voice-bank kernel) -> double-grade peaks -> float64 device tracker
-    -> 17-field table -> df-phase render (float32 out, the phase advance in
-    float64), plus the float32 vocoder. Returns (framed stereo (F, S, 2),
-    vocoder mix, dropped); with emit="table" the (total_frames, n_slots,
-    17) float64 table in place of the render (the note-level metric's
-    input). Spans as in _fused_single_dispatch."""
-    _freq, _mag, mix, table, dropped = _front(
-        bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw, df=True,
-        df_mode=df_mode)
-    if emit == "table":
-        return table, mix, dropped
-    with span("render", table.device):
-        out = resynth_bank._render_slots(table, stride=tr_kw["stride"],
-                                         dtype="float32")
+                                         dtype=_synth_dtype(rconfig))
     return out, mix, dropped
 
 
@@ -495,9 +472,9 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
     host is the tracker's violation flag. Call step() back to back to
     serve; flatten with assemble_framed_stereo.
 
-    dtype "df32" stages the fidelity chain (_fused_single_dispatch_df, in
-    the analysis mode DF_ANALYSIS_MODE); its emit="table" returns the slot
-    table in place of the render (JAX chain.py:436-439).
+    dtype "df32" stages the fidelity chain (in the analysis mode
+    DF_ANALYSIS_MODE); its emit="table" returns the slot table in place of
+    the render (JAX chain.py:436-439).
     draws: optional (pan_draws, phase_draws) pools; defaults to the numpy
     pools matching the host tracker's RNG sequence. mod_mode: the vocoder's
     modulator path, "decimated" (None, the default) or "full" (JAX
@@ -516,16 +493,10 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
         tracker_args, tr_kw = _tracker_inputs(
             rconfig, resynth_mod._render_config(rconfig), n_frames, draws,
             _device_dtype(rconfig), dev)
-    df_mode = DF_ANALYSIS_MODE
 
     def step():
-        if df:
-            return _fused_single_dispatch_df(
-                bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw,
-                df_mode=df_mode, emit=emit)
-        return _fused_single_dispatch(bank_args, av_args, tracker_args,
-                                      av_kw=av_kw, tr_kw=tr_kw,
-                                      dtype=rconfig.dtype)
+        return _step(bank_args, av_args, tracker_args, av_kw=av_kw,
+                     tr_kw=tr_kw, rconfig=rconfig, emit=emit)
 
     def cost_analysis():
         """The operations, bytes and transcendental evaluations one step()
@@ -537,8 +508,7 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
         (cuda_voicebank.kernel_bound counts there) and reads the run's
         data-dependent counts in one synchronisation."""
         return _step_cost(bank_args, av_args, tracker_args, av_kw=av_kw,
-                          tr_kw=tr_kw, rconfig=rconfig, df_mode=df_mode,
-                          emit=emit)
+                          tr_kw=tr_kw, rconfig=rconfig, emit=emit)
 
     step.cost_analysis = cost_analysis
     if df:
@@ -569,18 +539,16 @@ def dispatched_ops(run) -> list[str]:
 
 
 def _step_cost(bank_args, av_args, tracker_args, *, av_kw: dict, tr_kw: dict,
-               rconfig, df_mode: str, emit: str) -> dict:
+               rconfig, emit: str) -> dict:
     """cost_analysis of a prepared chain step (see there)."""
     from . import cost
 
-    df = rconfig.dtype == "df32"
     loops = device_tracker.FRAME_LOOPS
-    freq, mag, mix, table, _dropped = _front(
-        bank_args, av_args, tracker_args, av_kw=av_kw, tr_kw=tr_kw, df=df,
-        df_mode=df_mode)
+    freq, mag, mix = _analyze_vocode(*bank_args, *av_args, **av_kw)
+    table, _dropped = _track(freq, mag, tracker_args, tr_kw, rconfig)
     path = ("frame loop" if device_tracker.FRAME_LOOPS > loops
             else "frame-parallel")
-    render_dtype = "float32" if df else rconfig.dtype
+    render_dtype = _synth_dtype(rconfig)
     data = cost.tracker_data(freq, mag, table, path=path,
                              stride=tr_kw["stride"], render_dtype=render_dtype,
                              loudness_points=int(tracker_args[0].shape[0]))
@@ -595,7 +563,7 @@ def _step_cost(bank_args, av_args, tracker_args, *, av_kw: dict, tr_kw: dict,
         analysis=cost.analysis(
             n, n_channels=int(gains.shape[-1]), window_size=av_kw["window_size"],
             stride=av_kw["stride"], fft_len=av_kw["fft_len"], k=av_kw["k"],
-            dtype=rconfig.dtype, df_mode=df_mode),
+            dtype=rconfig.dtype, df_mode=av_kw["df_mode"]),
         vocoder=cost.vocoder(
             n, edges=av_kw["edges"], sample_rate=av_kw["sample_rate"],
             mod_window=av_kw["mod_window"], voc_stride=av_kw["voc_stride"],
@@ -637,8 +605,7 @@ def df32_analysis_peaks(bank: voicebank.VoiceBank, n_samples: int,
     bank_args, av_args, av_kw = _stage_analyze_vocode(
         bank, n_samples, rconfig, vparams, carrier, block_size,
         torch.device(device))
-    freq, mag, _mix = _fused_analyze_vocode_df(
-        *bank_args, *av_args, df_mode=DF_ANALYSIS_MODE, **av_kw)
+    freq, mag, _mix = _analyze_vocode(*bank_args, *av_args, **av_kw)
     return freq.cpu().numpy(), mag.cpu().numpy()
 
 
@@ -695,46 +662,32 @@ def run_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
                               tracker="device", dropped=dropped)
 
 
-def _fused_resynth_from_signal(mono, window, tracker_args, *, tr_kw: dict,
-                               rconfig, start_sample: int):
-    """Analysis -> resynthesis of a PROVIDED mono signal (the rt.resynth.job
-    WAV path) on its device: STFT -> peaks -> device tracker -> render
-    (JAX chain.py:751-778). Returns ((T, 2) stereo, dropped). dtype "df32"
-    analyses in float64 (as JAX does: its working dtype is float64), tracks
-    with the fidelity tracker and renders the 17-field table to float32
-    (the render config's dtype)."""
-    fft_len = stft_ops.fft_length_for(rconfig.window_size)
-    sq = stft_ops._stft_sqmag(mono, window, window_size=rconfig.window_size,
-                              stride=rconfig.stride, fft_length=fft_len)
-    freq, mag = stft_ops._top_peaks(sq, sample_rate=rconfig.sample_rate,
-                                    fft_length=fft_len, k=rconfig.max_voices + 1)
-    build = (device_tracker.build_tables_device_df if rconfig.dtype == "df32"
-             else device_tracker.build_tables_device)
-    table, dropped = build(freq, mag, *tracker_args, device=mono.device, **tr_kw)
-    out = resynth_bank._render_slots(
-        table, stride=tr_kw["stride"],
-        dtype=resynth_mod._render_config(rconfig).dtype)
-    return assemble_framed_stereo(out, start_sample), dropped
-
-
 def resynthesize_signal_device(signal, rconfig, *, device="cuda") -> torch.Tensor:
     """Device-resident resynthesis of a mono signal (a host array or a
-    tensor) on `device` (JAX chain.py:781-815), covering autotune and
-    harmonize configs. Returns the (T, 2) stereo tensor."""
+    tensor) on `device` (JAX chain.py:781-815), the rt.resynth.job WAV
+    path: STFT -> peaks -> device tracker -> render (JAX chain.py:751-778),
+    covering autotune and harmonize configs. Returns the (T, 2) stereo
+    tensor. dtype "df32" analyses in float64 (as JAX does: its working
+    dtype is float64), tracks with the fidelity tracker and renders the
+    17-field table to float32 (the render config's dtype)."""
     dev = torch.device(device)
     wdt = _device_dtype(rconfig)
     n = int(signal.shape[0]) if torch.is_tensor(signal) else len(signal)
     rcfg = resynth_mod._render_config(rconfig)
     tracker_args, tr_kw = _tracker_inputs(rconfig, rcfg, _n_frames(n, rconfig),
                                           None, wdt, dev)
-    stereo, _dropped = _fused_resynth_from_signal(
+    freq, mag = _peaks(
         torch.as_tensor(signal, dtype=wdt, device=dev),
         torch.as_tensor(stft_ops.gaussian_window(rconfig.window_size,
                                                  sigmas=4.0),
                         dtype=wdt, device=dev),
-        tracker_args, tr_kw=tr_kw, rconfig=rconfig,
-        start_sample=rcfg.start_sample)
-    return stereo
+        window_size=rconfig.window_size, stride=rconfig.stride,
+        fft_len=stft_ops.fft_length_for(rconfig.window_size),
+        k=rconfig.max_voices + 1, sample_rate=rconfig.sample_rate)
+    table, _dropped = _track(freq, mag, tracker_args, tr_kw, rconfig)
+    framed = resynth_bank._render_slots(table, stride=tr_kw["stride"],
+                                        dtype=rcfg.dtype)
+    return assemble_framed_stereo(framed, rcfg.start_sample)
 
 
 def prepare_offline_chain_device_batch(banks, n_samples: int,
@@ -744,19 +697,20 @@ def prepare_offline_chain_device_batch(banks, n_samples: int,
                                        draws=None, device="cuda"):
     """Batched serving: B independent jobs per step on `device`.
 
-    The chain of prepare_offline_chain_device, run once over the stacked
-    jobs, as the JAX program vmaps it (JAX chain.py:906-931): the jobs'
-    voice tables stack on a leading axis (equal voice counts, else a
+    The step of prepare_offline_chain_device (_step), run once over the
+    stacked jobs, as the JAX program vmaps it (JAX chain.py:906-931): the
+    jobs' voice tables stack on a leading axis (equal voice counts, else a
     ValueError naming the shapes), so a step makes one voice-bank kernel
     launch for all jobs, one batched STFT and top-k, one batched vocoder
     (its host-built kernel matrices staged once, not once per job), the
     batched tracker (device_tracker.build_tables_device_batch: one
     frame-local pass over every job's frames, the violation flag read once
-    for the batch) and one render pass per chunk of frames over every job
-    (resynth_bank._render_slots). The JAX program's 64-slot render split
-    and its lax.cond (JAX chain.py:915-928) worked around conds under
-    vmap; the port renders every slot. float32 or float64, as in the JAX
-    package.
+    for the batch) and the render of every job's table
+    (resynth_bank._render_slots: on the card one launch of the render
+    kernel over every job's live slots; on the CPU the plain render, in
+    chunks of frames). The JAX program's 64-slot render split and its
+    lax.cond (JAX chain.py:915-928) worked around conds under vmap.
+    float32 or float64, as in the JAX package.
 
     banks: list of VoiceBank (same n_samples/config per job).
     carrier: (n,) shared or (B, n) per-job.
@@ -781,13 +735,9 @@ def prepare_offline_chain_device_batch(banks, n_samples: int,
 
     def step():
         with span("chain", dev):
-            freq, mag, mix = _fused_analyze_vocode(*bank_args, *av_args, **av_kw)
-            with span("tracker", dev):
-                tables, dropped = device_tracker.build_tables_device_batch(
-                    freq, mag, *tracker_args, device=dev, **tr_kw)
-            with span("render", dev):
-                framed = resynth_bank._render_slots(tables, stride=rcfg.stride,
-                                                    dtype=rconfig.dtype)
+            framed, mix, dropped = _step(bank_args, av_args, tracker_args,
+                                         av_kw=av_kw, tr_kw=tr_kw,
+                                         rconfig=rconfig)
             stereo = assemble_framed_stereo(framed, rcfg.start_sample)
         return stereo, mix, dropped
 

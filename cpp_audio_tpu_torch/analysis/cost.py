@@ -127,10 +127,10 @@ _QIFFT_DF, _QIFFT_DF_TRANS = 23, 3
 def analysis(n: int, *, n_channels: int, window_size: int, stride: int,
              fft_len: int, k: int, dtype: str, df_mode: str = "hybrid") -> dict:
     """The mono mixdown of the synth's (n, C) output, then the STFT peaks of
-    F frames (chain._fused_analyze_vocode(_df)'s analysis): windowing, the
-    rfft at fft_len, |X|^2, the per-bin peak test and score, the top-k
-    selection and interpolation. dtype "float32" / "float64":
-    stft._stft_sqmag and _top_peaks in that type. dtype "df32":
+    F frames (chain._peaks): windowing, the rfft at fft_len, |X|^2, the
+    per-bin peak test and score, the top-k selection and interpolation.
+    dtype "float32" / "float64": stft._stft_sqmag and _top_peaks in that
+    type. dtype "df32":
     df_mode "hybrid" (ops/dfft_hybrid.hybrid_peaks_df32: the float32
     selection, then the float64 spectrum and |X|^2 at the 3 bins around
     each selected peak, and the float64 QIFFT there) or "ladder"

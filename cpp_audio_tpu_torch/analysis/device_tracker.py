@@ -67,10 +67,10 @@ _DEFAULT_ROW = ((_F_INC, 1e-6), (_F_TP0, -1e9), (_F_A, 1.0), (_F_SUS, 1.0),
 # per-slot float state of the frame loop (columns of its (P + 1, 14) table)
 (_S_PRESS, _S_RELEASE, _S_TOP, _S_A, _S_H, _S_D, _S_R, _S_GL, _S_GR,
  _S_PHASE, _S_VOLB, _S_PREVINC, _S_CURINC, _S_CURVOL) = range(14)
-_Q = 128  # played-set capacity (build_tables_device caps max_voices at 127)
+_Q = 128  # played-set capacity (_keywords caps max_voices at 127)
 
 # Host synchronisations made by the tracker: one read of the violation flag
-# per build_tables_device(_batch) call that tries the frame-parallel path.
+# per tracker call (_tables) that tries the frame-parallel path.
 HOST_SYNCS = 0
 # Tables built by the exact frame loop (_scan_tables), one per job.
 FRAME_LOOPS = 0
@@ -431,8 +431,8 @@ def _match_parallel(tpitch, tvalid, maxd, Q: int):
     """Per-frame two-pointer matching f-1 -> f, batched over ALL frames.
 
     Valid when the played set before frame f equals frame f-1's valid tuned
-    pitches (no voice-cap drops, min_volume > 0) — the violation predicate in
-    build_tables_device guards this. Returns (matched, match_prev) (F, k).
+    pitches (no voice-cap drops, min_volume > 0) — the violation predicate,
+    which _tables reads, guards this. Returns (matched, match_prev) (F, k).
     """
     k = tpitch.shape[1]
     prev = torch.cat([tpitch.new_full((1, k), torch.inf), tpitch[:-1]], dim=0)
@@ -721,12 +721,11 @@ def _prep_lanes(freq, mag_db, loud_pitches, loud_spl, at_args, kw):
         min_volume=kw["min_volume"], pitch_method=kw["pitch_method"],
         volume_method=kw["volume_method"], shift_pre=kw["shift_pre"],
         shift_post=kw["shift_post"], analysis_volume=kw["analysis_volume"],
-        harmonize_pre=kw.get("harmonize_pre", 0.0),
-        harmonize_post=kw.get("harmonize_post", 0.0),
-        autotune_kind=kw.get("autotune_kind", "off"),
-        autotune_max_pitch=kw.get("autotune_max_pitch", 150.0),
-        autotune_tolerance=kw.get("autotune_tolerance", 100.0),
-        harmonize_semantics=kw.get("harmonize_semantics", "merged"))
+        harmonize_pre=kw["harmonize_pre"], harmonize_post=kw["harmonize_post"],
+        autotune_kind=kw["autotune_kind"],
+        autotune_max_pitch=kw["autotune_max_pitch"],
+        autotune_tolerance=kw["autotune_tolerance"],
+        harmonize_semantics=kw["harmonize_semantics"])
     k = tpitch.shape[-1]  # harmonize stages double the lane count
     shape = lead + (F, k)
     tpitch, volume, loud_order = (a.reshape(shape)
@@ -771,7 +770,7 @@ def _parallel_tables(tpitch, volume, loud_order, n_data_frames, pan_draws,
         release=float(kw["release"]),
         stereo_spread=float(kw["stereo_spread"]),
         total_frames=int(kw["total_frames"]), t_max=_t_max(kw, n_data_frames),
-        stable_draws=kw.get("draw_indexing", "sequential") == "stable")
+        stable_draws=kw["draw_indexing"] == "stable")
 
 
 class _ScanCarry:
@@ -991,7 +990,7 @@ def _scan_tables_plain(tpitch, volume, loud_order, n_data_frames, pan_draws,
                float(kw["sustain"]), float(kw["release"]),
                float(kw["stereo_spread"]), int(total_frames),
                pan_draws, phase_draws,
-               kw.get("draw_indexing", "sequential") == "stable")
+               kw["draw_indexing"] == "stable")
     carry = _ScanCarry(P, _Q, tpitch.dtype, tpitch.device)
     rows = [_track_step(carry, tpitch[f], volume[f], loud_order[f], f,
                         f < n_data_frames, defaults, P=P, Q=_Q, statics=statics)
@@ -1040,20 +1039,49 @@ def _inputs(freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws,
             cast(pan_draws), cast(phase_draws), at)
 
 
-def build_tables_device_batch(freq, mag_db, loud_pitches, loud_spl,
-                              pan_draws, phase_draws, *, device="cuda", **kw):
-    """Batched-serving variant: freq/mag are (B, F, k); returns
-    ((B, total_frames, n_slots, 16), (B,) dropped).
+def _keywords(*, total_frames: int, stride: int, sample_rate: float,
+              max_voices: int, n_slots: int, nearby_distance: float,
+              min_volume: float, max_track_pitches: float, pitch_method: int,
+              volume_method: int, analysis_volume: float, shift_pre: float,
+              shift_post: float, stereo_spread: float, attack: float,
+              hold: float, decay: float, sustain: float, release: float,
+              harmonize_pre: float = 0.0, harmonize_post: float = 0.0,
+              autotune_kind: str = "off", autotune_max_pitch: float = 150.0,
+              autotune_tolerance: float = 100.0,
+              harmonize_semantics: str = "merged",
+              draw_indexing: str = "sequential") -> dict:
+    """The tracker's keywords, with their defaults, as the dict that every
+    stage below the entries reads by key. autotune_kind: 'off' | 'scale' |
+    'allowed' (chain.autotune_device_arrays gives the arrays). The played
+    set holds _Q pitches (and the frame-loop kernel's, ops/cuda_scan.Q), so
+    max_voices is at most _Q - 1: with more, note-ons would be lost without
+    a count."""
+    if max_voices > _Q - 1:
+        raise ValueError(f"device tracker supports max_voices <= {_Q - 1}")
+    return dict(locals())
 
-    The frame-local stage runs once over all jobs' frames; the parallel
-    tracker runs per job; the violation is hoisted over the batch (any job
-    violating sends every job down the frame loop, one flag read per
-    batch; the loop takes every job in one call of _scan_tables, on the
-    card one launch). min_volume <= 0 routes the whole batch down the frame
-    loop (the parallel tracker's played-set identity needs min_volume > 0).
-    """
+
+def _stack(tensors):
+    """torch.stack of a job axis; one job's tensor as a view, not a copy."""
+    return tensors[0][None] if len(tensors) == 1 else torch.stack(tensors)
+
+
+def _tables(freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws, *,
+            device, autotune_arrays=None, force_scan: bool = False, **kw):
+    """(B, F, k) peaks of B jobs -> ((B, total_frames, n_slots, 16) tables,
+    (B,) dropped), on `device`: the routing behind every entry. Arrays that
+    are not tensors on `device` are moved there; the working dtype is
+    freq's; kw: _keywords'.
+
+    The frame-local stage runs once over every job's frames. With
+    min_volume > 0 (the frame-parallel tracker's played-set identity needs
+    it) and force_scan false, the frame-parallel tracker runs per job and
+    the jobs' violation flags are read on the host as one (one
+    synchronisation, counted in HOST_SYNCS); with none set its tables are
+    the result. Otherwise every job takes the exact frame loop, in one call
+    of _scan_tables (on the card one launch)."""
     global HOST_SYNCS
-    autotune_arrays = kw.pop("autotune_arrays", None)
+    kw = _keywords(**kw)
     freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws, at = _inputs(
         freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws,
         autotune_arrays, device)
@@ -1061,80 +1089,54 @@ def build_tables_device_batch(freq, mag_db, loud_pitches, loud_spl,
     tpitch, volume, loud_order, _k = _prep_lanes(freq, mag_db, loud_pitches,
                                                  loud_spl, at, kw)
     defaults = _default_row(freq.dtype, freq.device)
-    if kw["min_volume"] > 0:
+    if kw["min_volume"] > 0 and not force_scan:
         par = [_parallel_tables(tpitch[b], volume[b], loud_order[b], F,
                                 pan_draws, phase_draws, defaults, kw)
                for b in range(B)]
         HOST_SYNCS += 1
-        if not bool(torch.stack([v for _, v in par]).any()):
-            return (torch.stack([t for t, _ in par]),
+        if not bool(_stack([v for _, v in par]).any()):
+            return (_stack([t for t, _ in par]),
                     torch.zeros((B,), dtype=torch.int64, device=freq.device))
     return _scan_tables(tpitch, volume, loud_order, F, pan_draws, phase_draws,
                         defaults, kw)
 
 
+def build_tables_device_batch(freq, mag_db, loud_pitches, loud_spl,
+                              pan_draws, phase_draws, *, device="cuda", **kw):
+    """Batched-serving variant: freq/mag are (B, F, k); returns
+    ((B, total_frames, n_slots, 16), (B,) dropped). Keywords as
+    build_tables_device's, but for _force_scan.
+
+    The violation is hoisted over the batch: any job violating sends every
+    job down the frame loop (one flag read per batch; _tables)."""
+    return _tables(freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws,
+                   device=device, **kw)
+
+
 def build_tables_device(freq, mag_db, loud_pitches, loud_spl, pan_draws,
-                        phase_draws, *, total_frames: int, stride: int,
-                        sample_rate: float, max_voices: int, n_slots: int,
-                        nearby_distance: float, min_volume: float,
-                        max_track_pitches: float, pitch_method: int,
-                        volume_method: int, analysis_volume: float,
-                        shift_pre: float, shift_post: float,
-                        stereo_spread: float, attack: float, hold: float,
-                        decay: float, sustain: float, release: float,
-                        harmonize_pre: float = 0.0, harmonize_post: float = 0.0,
-                        autotune_kind: str = "off",
-                        autotune_max_pitch: float = 150.0,
-                        autotune_tolerance: float = 100.0,
-                        autotune_arrays=None,
-                        harmonize_semantics: str = "merged",
-                        draw_indexing: str = "sequential",
-                        device="cuda", _force_scan: bool = False):
+                        phase_draws, *, device="cuda", _force_scan: bool = False,
+                        **kw):
     """(F, k) peak arrays -> ((total_frames, n_slots, 16) table,
     dropped-NoteOn count), on `device`. Arrays that are not tensors on
     `device` are moved there; the working dtype is freq's.
 
-    autotune_kind: 'off' | 'scale' | 'allowed' with autotune_arrays =
-    (root_pitch (), scale (8,), equidistant (7,), allowed (A,)) — see
-    chain.autotune_device_arrays / analysis.autotune.autotune_tables.
+    Keywords: those of _keywords (the render's total_frames, stride and
+    sample_rate, the ResynthConfig's tracker settings, the envelope; the
+    harmonize, autotune and draw-indexing ones have defaults), and
+    autotune_arrays = (root_pitch (), scale (8,), equidistant (7,),
+    allowed (A,)) for autotune_kind 'scale' or 'allowed' (see
+    chain.autotune_device_arrays / analysis.autotune.autotune_tables).
 
     The frame-parallel tracker runs first (min_volume > 0); its violation
     flag is read on the host (one synchronisation, counted in HOST_SYNCS)
-    and, when set, the exact frame loop runs instead, on the same device.
+    and, when set, the exact frame loop runs instead, on the same device
+    (_tables, with this job as a batch of one). _force_scan: the frame loop
+    without the frame-parallel try.
     """
-    global HOST_SYNCS
-    if max_voices > 127:
-        raise ValueError("device tracker supports max_voices <= 127")
-    freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws, at = _inputs(
-        freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws,
-        autotune_arrays, device)
-    F = freq.shape[0]
-    kw = dict(
-        total_frames=total_frames, stride=stride, sample_rate=sample_rate,
-        max_voices=max_voices, n_slots=n_slots,
-        nearby_distance=nearby_distance, min_volume=min_volume,
-        max_track_pitches=max_track_pitches, pitch_method=pitch_method,
-        volume_method=volume_method, analysis_volume=analysis_volume,
-        shift_pre=shift_pre, shift_post=shift_post,
-        stereo_spread=stereo_spread, attack=attack, hold=hold, decay=decay,
-        sustain=sustain, release=release,
-        harmonize_pre=harmonize_pre, harmonize_post=harmonize_post,
-        autotune_kind=autotune_kind, autotune_max_pitch=autotune_max_pitch,
-        autotune_tolerance=autotune_tolerance,
-        harmonize_semantics=harmonize_semantics,
-        draw_indexing=draw_indexing)
-    tpitch, volume, loud_order, _k = _prep_lanes(freq, mag_db, loud_pitches,
-                                                 loud_spl, at, kw)
-    defaults = _default_row(freq.dtype, freq.device)
-    if min_volume > 0 and not _force_scan:
-        table, viol = _parallel_tables(tpitch, volume, loud_order, F,
-                                       pan_draws, phase_draws, defaults, kw)
-        HOST_SYNCS += 1
-        if not bool(viol):
-            return table, torch.zeros((), dtype=torch.int64, device=freq.device)
-    table, dropped = _scan_tables(tpitch[None], volume[None], loud_order[None], F,
-                                  pan_draws, phase_draws, defaults, kw)
-    return table[0], dropped[0]
+    tables, dropped = _tables(freq[None], mag_db[None], loud_pitches, loud_spl,
+                              pan_draws, phase_draws, device=device,
+                              force_scan=_force_scan, **kw)
+    return tables[0], dropped[0]
 
 
 def split_increment(table: torch.Tensor) -> torch.Tensor:
@@ -1149,19 +1151,20 @@ def split_increment(table: torch.Tensor) -> torch.Tensor:
 
 
 def build_tables_device_df(freq, mag_db, loud_pitches, loud_spl, pan_draws,
-                           phase_draws, *, device="cuda", **kw):
+                           phase_draws, *, device="cuda", _force_scan: bool = False,
+                           **kw):
     """The fidelity chain's tracker: (F, k) float64 peaks -> ((total_frames,
     n_slots, 17) float64 table, dropped), on `device`.
 
     Port of JAX device_tracker.py:2070, which re-runs the float32 tracker's
     semantics with every decision quantity and recurrence carried as df32
     (hi, lo) pairs because the TPU has no float64. Here the values are
-    float64 inside: the same build_tables_device (frame-local stage, then
-    the frame-parallel tracker, or the exact frame loop when its violation
-    flag is set), at float64, with its keywords (autotune_arrays float64,
-    _force_scan). The 17th field follows JAX's contract (split_increment),
-    so the render takes the df-phase path and JAX's df tables and these
-    compare field by field.
+    float64 inside: the same routing as build_tables_device (frame-local
+    stage, then the frame-parallel tracker, or the exact frame loop when its
+    violation flag is set), at float64, with its keywords (autotune_arrays
+    float64, _force_scan). The 17th field follows JAX's contract
+    (split_increment), so the render takes the df-phase path and JAX's df
+    tables and these compare field by field.
 
     One deliberate difference: on a violation JAX falls back to its float32
     frame loop with a zero field 16 (:2092-2098); here the frame loop runs
@@ -1170,7 +1173,7 @@ def build_tables_device_df(freq, mag_db, loud_pitches, loud_spl, pan_draws,
     freq = torch.as_tensor(freq, device=torch.device(device))
     if freq.dtype != torch.float64:
         raise ValueError(f"the fidelity tracker takes float64 peaks, got {freq.dtype}")
-    table, dropped = build_tables_device(freq, mag_db, loud_pitches, loud_spl,
-                                         pan_draws, phase_draws, device=device,
-                                         **kw)
-    return split_increment(table), dropped
+    tables, dropped = _tables(freq[None], mag_db[None], loud_pitches, loud_spl,
+                              pan_draws, phase_draws, device=device,
+                              force_scan=_force_scan, **kw)
+    return split_increment(tables[0]), dropped[0]

@@ -104,7 +104,7 @@ def scan_ints(kw: dict, n_data_frames: int) -> np.ndarray:
     draws: the kernel's integer statics, as int32."""
     return np.array([int(kw["max_voices"]), int(kw["total_frames"]),
                      int(n_data_frames), int(float(kw["sustain"]) < 0.999999),
-                     int(kw.get("draw_indexing", "sequential") == "stable")],
+                     int(kw["draw_indexing"] == "stable")],
                     dtype=np.int32)
 
 

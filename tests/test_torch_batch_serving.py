@@ -66,6 +66,7 @@ from cpp_audio_tpu_torch.analysis import vocoder as tvocoder
 from cpp_audio_tpu_torch.models import resynth_bank as trb
 from cpp_audio_tpu_torch.models import voicebank as tvb
 from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
+from cpp_audio_tpu_torch.ops import dfft_hybrid as tdfft_hybrid
 from cpp_audio_tpu_torch.ops import stft as tstft
 import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
@@ -171,33 +172,56 @@ def test_batch_matches_single(name):
         assert int(dropped[b]) == int(single.dropped)
 
 
-def test_step_runs_each_stage_once(monkeypatch):
-    """One step: one voice-bank render (one kernel launch on the card) over
-    every job, one STFT, one top-k, one modulator pass, one carrier vocode,
-    one tracker call and one render (of one chunk here: 2 s fits one)."""
-    calls = {}
+@pytest.mark.parametrize("case", ["batch", "single", "df32"])
+def test_step_runs_each_stage_once(monkeypatch, case):
+    """One step of the batched chain, of run_offline_chain_device and of
+    the fidelity chain: one voice-bank render (one kernel launch on the
+    card) over every job, one analysis (an STFT and a top-k; the fidelity
+    chain's hybrid peaks), one modulator pass, one carrier vocode, one call
+    of the one tracker entry the step's peaks call for, with (B, F, k)
+    peaks for a batch and (F, k) for a job, and one render (of one chunk
+    here: 2 s fits one). Each function is counted on its module, where the
+    chain looks it up at each call (the benchmark's harness wraps the
+    tracker's entries there to keep the peaks)."""
+    calls, dims = {}, []
 
     def counted(mod, name):
         plain = getattr(mod, name)
 
         def wrapped(*a, **k):
             calls[name] = calls.get(name, 0) + 1
+            if mod is tdt:
+                dims.append(a[0].dim())
             return plain(*a, **k)
         monkeypatch.setattr(mod, name, wrapped)
 
+    entries = {"batch": "build_tables_device_batch", "single": "build_tables_device",
+               "df32": "build_tables_device_df"}
     for mod, name in ((cv, "render_blocks"), (tstft, "_stft_sqmag"),
-                      (tstft, "_top_peaks"), (tvocoder, "_modulator_band_amps_fast"),
-                      (tvocoder, "_carrier_vocode"), (tdt, "build_tables_device_batch"),
-                      (trb, "_render_slots")):
+                      (tstft, "_top_peaks"), (tdfft_hybrid, "hybrid_peaks_df32"),
+                      (tvocoder, "_modulator_band_amps_fast"),
+                      (tvocoder, "_carrier_vocode"), (trb, "_render_slots"),
+                      *((tdt, e) for e in entries.values())):
         counted(mod, name)
+    monkeypatch.setattr(tchain, "DF_ANALYSIS_MODE", "hybrid")
+    rcfg = tresynth.ResynthConfig(sample_rate=SR, analysis_volume=1.0,
+                                  dtype="df32" if case == "df32" else "float32")
+    vparams = tvocoder.VocoderParams(sample_rate=SR)
     tbanks = [interop.voicebank_from_numpy(_job_bank(s)) for s in SEEDS]
-    step, _ = tchain.prepare_offline_chain_device_batch(
-        tbanks, N, tresynth.ResynthConfig(sample_rate=SR, analysis_volume=1.0),
-        tvocoder.VocoderParams(sample_rate=SR), CARRIER, block_size=BLOCK,
-        device="cpu")
-    stereo, voc, dropped = step()
-    assert calls == dict.fromkeys(calls, 1) and len(calls) == 7
-    assert stereo.shape[0] == voc.shape[0] == dropped.shape[0] == len(SEEDS)
+    if case == "batch":
+        step, _ = tchain.prepare_offline_chain_device_batch(
+            tbanks, N, rcfg, vparams, CARRIER, block_size=BLOCK, device="cpu")
+        stereo, voc, dropped = step()
+        assert stereo.shape[0] == voc.shape[0] == dropped.shape[0] == len(SEEDS)
+    else:
+        r = tchain.run_offline_chain_device(tbanks[0], N, rcfg, vparams, CARRIER,
+                                            block_size=BLOCK, device="cpu")
+        assert r.resynth.dim() == 2 and r.vocoded.dim() == 1
+    analysis = (("hybrid_peaks_df32",) if case == "df32"
+                else ("_stft_sqmag", "_top_peaks"))
+    assert calls == dict.fromkeys(("render_blocks", *analysis, "_modulator_band_amps_fast",
+                                   "_carrier_vocode", entries[case], "_render_slots"), 1)
+    assert dims == [3 if case == "batch" else 2]
 
 
 @pytest.mark.parametrize("render", ["plain", "tiled"])

@@ -312,8 +312,7 @@ def _port_peaks_float64(rcfg):
         interop.voicebank_from_numpy(bank), N, rcfg,
         tvocoder.VocoderParams(sample_rate=SR), CARRIER, scfg.block_size,
         torch.device("cpu"))
-    freq, mag, _mix = tchain._fused_analyze_vocode(*bank_args, *av_args,
-                                                   **av_kw)
+    freq, mag, _mix = tchain._analyze_vocode(*bank_args, *av_args, **av_kw)
     return freq.numpy(), mag.numpy()
 
 

@@ -93,7 +93,7 @@ def scan_inputs(name, *, dtype=torch.float64, device="cpu", seeds=(7,)):
     frame-local stage (one job per seed), the analysis frames, the pools,
     the defaults row and the keywords."""
     over, k, F = CASES[name]
-    kw = dict(BASE_KW, total_frames=F + 6, **over)
+    kw = tdt._keywords(**dict(BASE_KW, total_frames=F + 6, **over))
     if name == "cap_drop":  # every frame saturated with 16 loud peaks
         peaks = [(np.tile(np.linspace(100, 3000, 16) * 2 ** (s / 100), (F, 1)),
                   np.full((F, 16), -20.0)) for s in seeds]
@@ -146,7 +146,7 @@ def test_build_tables_device_forced_takes_the_plain_loop(monkeypatch, name):
     kernel call."""
     _refuse_kernel(monkeypatch)
     over, k, F = CASES[name]
-    kw = dict(BASE_KW, total_frames=F + 6, **over)
+    kw = tdt._keywords(**dict(BASE_KW, total_frames=F + 6, **over))
     if name == "cap_drop":
         freq = np.tile(np.linspace(100, 3000, 16), (F, 1))
         mag = np.full((F, 16), -20.0)

@@ -313,8 +313,15 @@ def test_batch_matches_jax_and_single(min_volume):
         assert int(got_d[b]) == int(ds)
 
 
-def test_max_voices_cap():
+@pytest.mark.parametrize("entry, lead", [("build_tables_device", ()),
+                                         ("build_tables_device_batch", (1,)),
+                                         ("build_tables_device_df", ())],
+                         ids=["single", "batch", "df"])
+def test_max_voices_cap(entry, lead):
+    """Every entry refuses max_voices > 127: the played set holds 128
+    pitches (_Q, the frame-loop kernel's Q), so more voices would lose
+    note-ons without a count."""
     with pytest.raises(ValueError, match="127"):
-        tdt.build_tables_device(np.zeros((2, 8)), np.zeros((2, 8)), *LOUD,
-                                np.zeros(8), np.zeros(8), device="cpu",
-                                **dict(BASE_KW, total_frames=4, max_voices=128))
+        getattr(tdt, entry)(np.zeros(lead + (2, 8)), np.zeros(lead + (2, 8)), *LOUD,
+                            np.zeros(8), np.zeros(8), device="cpu",
+                            **dict(BASE_KW, total_frames=4, max_voices=128))
