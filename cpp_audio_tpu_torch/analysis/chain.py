@@ -15,7 +15,8 @@ Port of cpp_audio_tpu/analysis/chain.py, with its two trackers:
     run_offline_chain_device, :716-736; resynthesize_signal_device,
     :751-815; prepare_offline_chain_device_batch, :818-936): the device
     tracker (analysis/device_tracker.py) builds the table where the peaks
-    are, so nothing crosses to the host but the tracker's violation flag.
+    are, so nothing crosses to the host but, off the card, the tracker's
+    violation flag.
     Eager PyTorch dispatches op by op; "single dispatch" names the JAX
     program this mirrors, not a property of the port.
 The single-dispatch chain has two variants, as in the JAX package: the
@@ -469,8 +470,9 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
     runs synth -> STFT -> peaks -> device tracker -> render + vocoder over
     them, in the five stages' spans, and returns (stereo framed (F, S, 2),
     vocoder mix, dropped) tensors; the one device value it reads on the
-    host is the tracker's violation flag. Call step() back to back to
-    serve; flatten with assemble_framed_stereo.
+    host, off the card, is the tracker's violation flag (on the card the
+    frame-loop kernel builds the table and nothing is read). Call step()
+    back to back to serve; flatten with assemble_framed_stereo.
 
     dtype "df32" stages the fidelity chain (in the analysis mode
     DF_ANALYSIS_MODE); its emit="table" returns the slot table in place of
@@ -504,7 +506,8 @@ def prepare_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
         conventions, and step_cost: the keys). A measurement aid, as the
         JAX package's `.lower().compile()` is: it runs the front of the
         step once (synth -> analysis -> tracker, with the tracker's own
-        read of its violation flag), copies the voice tables to the host
+        read of its violation flag where it tries the frame-parallel
+        path), copies the voice tables to the host
         (cuda_voicebank.kernel_bound counts there) and reads the run's
         data-dependent counts in one synchronisation."""
         return _step_cost(bank_args, av_args, tracker_args, av_kw=av_kw,
@@ -704,8 +707,9 @@ def prepare_offline_chain_device_batch(banks, n_samples: int,
     launch for all jobs, one batched STFT and top-k, one batched vocoder
     (its host-built kernel matrices staged once, not once per job), the
     batched tracker (device_tracker.build_tables_device_batch: one
-    frame-local pass over every job's frames, the violation flag read once
-    for the batch) and the render of every job's table
+    frame-local pass over every job's frames, then on the card one
+    frame-loop kernel launch for every job, elsewhere the violation flag
+    read once for the batch) and the render of every job's table
     (resynth_bank._render_slots: on the card one launch of the render
     kernel over every job's live slots; on the CPU the plain render, in
     chunks of frames). The JAX program's 64-slot render split and its

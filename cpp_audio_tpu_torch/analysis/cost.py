@@ -273,12 +273,13 @@ def tracker(data: dict, *, float64: bool, n_fields: int, in_bytes: int,
     """The device tracker's work (build_tables_device / build_tables_device_df)
     counted from `data` (tracker_data): valid peaks, lanes, notes, written
     rows and the path taken ("frame-parallel", or "frame loop" when the
-    violation flag sent the call to the exact frame loop: that loop's work
-    is counted, not the parallel attempt before it). A lane is counted where
-    it plays: the frame loop's lanes that the voice cap drops are not. The
-    optional pitch stages between the grouping and the loudness order
-    (shifts, harmonize, autotune: a few operations per lane) are not
-    counted; the lanes a harmonize stage adds are. Bytes: in_bytes (the
+    call took the exact frame loop: on the card wherever its kernel takes
+    the shape, elsewhere when the violation flag sent the call there; that
+    loop's work is counted, not a parallel attempt before it). A lane is
+    counted where it plays: the frame loop's lanes that the voice cap drops
+    are not. The optional pitch stages between the grouping and the
+    loudness order (shifts, harmonize, autotune: a few operations per lane)
+    are not counted; the lanes a harmonize stage adds are. Bytes: in_bytes (the
     peaks, the loudness tables, the draw pools, the autotune arrays) in,
     out_bytes (the table and the dropped count) out."""
     def times(n, per):

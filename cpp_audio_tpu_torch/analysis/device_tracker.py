@@ -19,7 +19,13 @@ tracker is device code:
     An exact violation predicate (cap drop possible, slot overflow, overlong
     release tail) sends the call to the faithful frame loop (`_track_step`);
   * both paths emit the SAME (total_frames, n_slots, 16) control table the
-    host builders produce (models/resynth_bank.py field order).
+    host builders produce (models/resynth_bank.py field order);
+  * which path runs depends on the lanes' device
+    (`_tries_frame_parallel`): on the card the frame loop is one launch of a
+    CUDA kernel for every job and never synchronises, so it builds every
+    table (the kernel's wrapper refuses a shape it does not take); the
+    frame-parallel try, its flag read and the loop on a violation serve
+    the CPU.
 
 Port of cpp_audio_tpu/analysis/device_tracker.py: the float32 serving path
 (:1-1201), and the fidelity chain's tracker (the df32 tracker, :1204-2126)
@@ -31,9 +37,10 @@ group sums stay one-hot contractions (`_group_sum`), so the card adds them
 in a fixed order and gives the same table on every run; the boolean matrix
 squaring of the jump graph is pointer doubling of the jump map; `lax.cond`
 on the violation flag reads that one flag on the host (counted in
-HOST_SYNCS) and runs one branch; `lax.scan` over frames is a Python loop
-on the CPU (`_scan_tables_plain`) and, on the card, one launch of a CUDA
-kernel for every job of the call (ops/cuda_scan).
+HOST_SYNCS) and runs one branch, where the frame-parallel path is tried;
+`lax.scan` over frames is a Python loop on the CPU (`_scan_tables_plain`)
+and, on the card, one launch of a CUDA kernel for every job of the call
+(ops/cuda_scan).
 `.at[i].set(..., mode="drop")` writes go through a spare row that is
 sliced off (or, for per-slot state, kept as row P and never read), so the
 only duplicate targets are that spare row. The working dtype follows the
@@ -70,7 +77,8 @@ _DEFAULT_ROW = ((_F_INC, 1e-6), (_F_TP0, -1e9), (_F_A, 1.0), (_F_SUS, 1.0),
 _Q = 128  # played-set capacity (_keywords caps max_voices at 127)
 
 # Host synchronisations made by the tracker: one read of the violation flag
-# per tracker call (_tables) that tries the frame-parallel path.
+# per tracker call (_tables) that tries the frame-parallel path (none on the
+# card where the frame-loop kernel takes the call).
 HOST_SYNCS = 0
 # Tables built by the exact frame loop (_scan_tables), one per job.
 FRAME_LOOPS = 0
@@ -1066,6 +1074,17 @@ def _stack(tensors):
     return tensors[0][None] if len(tensors) == 1 else torch.stack(tensors)
 
 
+def _tries_frame_parallel(device_type: str, min_volume: float,
+                          force_scan: bool) -> bool:
+    """Whether a call tries the frame-parallel tracker before the exact
+    frame loop. The try needs min_volume > 0 (its played-set identity rests
+    on it) and force_scan false. On a CUDA device the loop is one launch of
+    the frame-loop kernel for every job, with no host read, where the
+    frame-parallel pass is ~1,200 ATen ops a job and a flag read: so the
+    card never tries it."""
+    return device_type != "cuda" and min_volume > 0 and not force_scan
+
+
 def _tables(freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws, *,
             device, autotune_arrays=None, force_scan: bool = False, **kw):
     """(B, F, k) peaks of B jobs -> ((B, total_frames, n_slots, 16) tables,
@@ -1073,13 +1092,12 @@ def _tables(freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws, *,
     are not tensors on `device` are moved there; the working dtype is
     freq's; kw: _keywords'.
 
-    The frame-local stage runs once over every job's frames. With
-    min_volume > 0 (the frame-parallel tracker's played-set identity needs
-    it) and force_scan false, the frame-parallel tracker runs per job and
-    the jobs' violation flags are read on the host as one (one
-    synchronisation, counted in HOST_SYNCS); with none set its tables are
-    the result. Otherwise every job takes the exact frame loop, in one call
-    of _scan_tables (on the card one launch)."""
+    The frame-local stage runs once over every job's frames. Where
+    _tries_frame_parallel (off the card), the frame-parallel tracker runs per job and the jobs' violation flags
+    are read on the host as one (one synchronisation, counted in
+    HOST_SYNCS); with none set its tables are the result. Otherwise every
+    job takes the exact frame loop, in one call of _scan_tables (on the
+    card one launch)."""
     global HOST_SYNCS
     kw = _keywords(**kw)
     freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws, at = _inputs(
@@ -1089,7 +1107,7 @@ def _tables(freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws, *,
     tpitch, volume, loud_order, _k = _prep_lanes(freq, mag_db, loud_pitches,
                                                  loud_spl, at, kw)
     defaults = _default_row(freq.dtype, freq.device)
-    if kw["min_volume"] > 0 and not force_scan:
+    if _tries_frame_parallel(freq.device.type, kw["min_volume"], force_scan):
         par = [_parallel_tables(tpitch[b], volume[b], loud_order[b], F,
                                 pan_draws, phase_draws, defaults, kw)
                for b in range(B)]
@@ -1107,8 +1125,12 @@ def build_tables_device_batch(freq, mag_db, loud_pitches, loud_spl,
     ((B, total_frames, n_slots, 16), (B,) dropped). Keywords as
     build_tables_device's, but for _force_scan.
 
-    The violation is hoisted over the batch: any job violating sends every
-    job down the frame loop (one flag read per batch; _tables)."""
+    On the card every job's table is the frame loop's, from one kernel
+    launch for the batch (one CTA a job, so each job's table equals its
+    build_tables_device call's to the bit). Where the frame-parallel
+    tracker is tried, the violation is hoisted over the batch: any job
+    violating sends every job down the frame loop (one flag read per
+    batch; _tables)."""
     return _tables(freq, mag_db, loud_pitches, loud_spl, pan_draws, phase_draws,
                    device=device, **kw)
 
@@ -1127,11 +1149,12 @@ def build_tables_device(freq, mag_db, loud_pitches, loud_spl, pan_draws,
     allowed (A,)) for autotune_kind 'scale' or 'allowed' (see
     chain.autotune_device_arrays / analysis.autotune.autotune_tables).
 
-    The frame-parallel tracker runs first (min_volume > 0); its violation
-    flag is read on the host (one synchronisation, counted in HOST_SYNCS)
-    and, when set, the exact frame loop runs instead, on the same device
-    (_tables, with this job as a batch of one). _force_scan: the frame loop
-    without the frame-parallel try.
+    On the card the exact frame loop builds the table in one kernel
+    launch, with no host read (_tables, with this job as a batch of one).
+    On the CPU the frame-parallel tracker runs first (min_volume > 0); its violation flag is read on the
+    host (one synchronisation, counted in HOST_SYNCS) and, when set, the
+    exact frame loop runs instead, on the same device. _force_scan: the
+    frame loop without the frame-parallel try, on any device.
     """
     tables, dropped = _tables(freq[None], mag_db[None], loud_pitches, loud_spl,
                               pan_draws, phase_draws, device=device,
@@ -1160,7 +1183,8 @@ def build_tables_device_df(freq, mag_db, loud_pitches, loud_spl, pan_draws,
     semantics with every decision quantity and recurrence carried as df32
     (hi, lo) pairs because the TPU has no float64. Here the values are
     float64 inside: the same routing as build_tables_device (frame-local
-    stage, then the frame-parallel tracker, or the exact frame loop when its
+    stage, then on the card the exact frame loop's float64 kernel; on the
+    CPU the frame-parallel tracker, or the exact frame loop when its
     violation flag is set), at float64, with its keywords (autotune_arrays
     float64, _force_scan). The 17th field follows JAX's contract
     (split_increment), so the render takes the df-phase path and JAX's df

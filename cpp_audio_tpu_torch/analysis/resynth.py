@@ -478,7 +478,7 @@ def resynthesize(signal, config: ResynthConfig, *, device_out: bool = False,
     host copy (numpy), or with device_out=True the tensor on `device`.
 
     implementation: "auto" takes the device-resident chain
-    (chain.resynthesize_signal_device: frame-parallel tracker, incl.
+    (chain.resynthesize_signal_device: the device tracker, incl.
     autotune/harmonize configs), except for reference-semantics harmonize
     configs, which go to "native"; "device" forces the device tracker;
     "native" takes the fused C++ table packer when the library is available

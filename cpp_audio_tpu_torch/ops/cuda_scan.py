@@ -10,7 +10,9 @@ See the source for the design and what bounds it.
 The plain version of the same function is
 device_tracker._scan_tables_plain (one job), and device_tracker
 ._scan_tables dispatches on the lanes' device: CPU tensors take the plain
-loop, CUDA tensors this kernel (or an exception). `LAUNCHES` counts
+loop, CUDA tensors this kernel (or an exception). On a CUDA device the
+tracker builds every table here (device_tracker._tries_frame_parallel).
+`LAUNCHES` counts
 launches; the stage spans record its change as the counter
 "scan_launches".
 """

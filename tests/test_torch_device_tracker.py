@@ -177,10 +177,9 @@ def _tables(freq, mag, kw, *, jax_kw=None, port_kw=None, pools=None):
     return np.asarray(ref_t), int(ref_d), got_t.numpy(), int(got_d)
 
 
-def _case_tables(name):
-    """(JAX table, JAX dropped, port table, port dropped, path the port
-    took) for one build_tables_device case."""
-    syncs = tdt.HOST_SYNCS
+def _case_inputs(name):
+    """(peaks, magnitudes, keywords, pools or None, JAX keywords, port
+    keywords) of one build_tables_device case."""
     if name in ("parallel", "force_scan", "min_volume_0"):
         freq, mag = jtests.TestParallelTracker()._peaks(seed=7)
         kw = dict(BASE_KW, total_frames=freq.shape[0] + 6)
@@ -188,8 +187,8 @@ def _case_tables(name):
                  "min_volume_0": dict(min_volume=0.0)}.get(name, {})
         kw.update({k: v for k, v in extra.items() if k != "_force_scan"})
         force = {k: v for k, v in extra.items() if k == "_force_scan"}
-        out = _tables(freq, mag, kw, jax_kw=force, port_kw=force)
-    elif name == "cap_violation":
+        return freq, mag, kw, None, force, force
+    if name == "cap_violation":
         # tests/test_device_tracker.py:181-208: every frame saturated with
         # more peaks than max_voices, so NoteOns drop and the violation sends
         # the call to the frame loop; at the "parallel" case's shapes and
@@ -197,12 +196,12 @@ def _case_tables(name):
         F = 40
         freq = np.tile(np.linspace(100, 3000, 16), (F, 1))
         mag = np.full((F, 16), -20.0)
-        out = _tables(freq, mag, dict(BASE_KW, total_frames=F + 6))
-    elif name == "silence":
+        return freq, mag, dict(BASE_KW, total_frames=F + 6), None, {}, {}
+    if name == "silence":
         freq = np.full((20, 16), np.nan)
         mag = np.full((20, 16), -np.inf)
-        out = _tables(freq, mag, dict(BASE_KW, total_frames=26))
-    elif name == "crossing_glides":  # tests/test_device_tracker.py:253-295
+        return freq, mag, dict(BASE_KW, total_frames=26), None, {}, {}
+    if name == "crossing_glides":  # tests/test_device_tracker.py:253-295
         # two tones crossing in pitch mid-run, at the "parallel" case's
         # shapes and keywords
         F, k = 40, 16
@@ -213,27 +212,34 @@ def _case_tables(name):
                            (600.0 * 2 ** (-fr / F), -18.0)])
             for j, (f0, m0) in enumerate(pair):
                 freq[fr, j], mag[fr, j] = f0, m0
-        out = _tables(freq, mag, dict(BASE_KW, total_frames=F + 6))
-    else:
-        if name == "stable_draws":  # tests/test_device_tracker.py:536-603
-            cfg, tcfg, freq, mag = _random_config(
-                1, draw_indexing="stable", pitch_harmonize_pre_autotune=0.0,
-                pitch_harmonize_post_autotune=0.0)
-        elif name == "autotune_harmonize_merged":
-            cfg, tcfg, freq, mag = _random_config(
-                2, SCALE, harmonize_semantics="merged")
-        else:  # autotune_harmonize_reference
-            cfg, tcfg, freq, mag = _random_config(
-                3, CHORD, harmonize_semantics="reference")
-        rcfg, trcfg = resynth._render_config(cfg), tresynth._render_config(tcfg)
-        kw = jchain.tracker_config_kwargs(cfg, rcfg)
-        assert tchain.tracker_config_kwargs(tcfg, trcfg) == kw
-        kw.update(total_frames=freq.shape[0] + 8, stride=rcfg.stride,
-                  sample_rate=float(cfg.sample_rate))
-        out = _tables(freq, mag, kw, pools=resynth.draw_pools(
-                          cfg, freq.shape[0] * cfg.max_voices + 16),
-                      jax_kw=dict(autotune_arrays=_at_arrays(cfg, "jax")),
-                      port_kw=dict(autotune_arrays=_at_arrays(tcfg, "port")))
+        return freq, mag, dict(BASE_KW, total_frames=F + 6), None, {}, {}
+    if name == "stable_draws":  # tests/test_device_tracker.py:536-603
+        cfg, tcfg, freq, mag = _random_config(
+            1, draw_indexing="stable", pitch_harmonize_pre_autotune=0.0,
+            pitch_harmonize_post_autotune=0.0)
+    elif name == "autotune_harmonize_merged":
+        cfg, tcfg, freq, mag = _random_config(
+            2, SCALE, harmonize_semantics="merged")
+    else:  # autotune_harmonize_reference
+        cfg, tcfg, freq, mag = _random_config(
+            3, CHORD, harmonize_semantics="reference")
+    rcfg, trcfg = resynth._render_config(cfg), tresynth._render_config(tcfg)
+    kw = jchain.tracker_config_kwargs(cfg, rcfg)
+    assert tchain.tracker_config_kwargs(tcfg, trcfg) == kw
+    kw.update(total_frames=freq.shape[0] + 8, stride=rcfg.stride,
+              sample_rate=float(cfg.sample_rate))
+    return (freq, mag, kw,
+            resynth.draw_pools(cfg, freq.shape[0] * cfg.max_voices + 16),
+            dict(autotune_arrays=_at_arrays(cfg, "jax")),
+            dict(autotune_arrays=_at_arrays(tcfg, "port")))
+
+
+def _case_tables(name):
+    """(JAX table, JAX dropped, port table, port dropped, path the port
+    took) for one build_tables_device case."""
+    freq, mag, kw, pools, jax_kw, port_kw = _case_inputs(name)
+    syncs = tdt.HOST_SYNCS
+    out = _tables(freq, mag, kw, jax_kw=jax_kw, port_kw=port_kw, pools=pools)
     took_parallel = tdt.HOST_SYNCS > syncs and out[3] == 0
     return out + (took_parallel,)
 
@@ -258,6 +264,27 @@ def test_build_tables_matches_jax(name):
     if name != "silence":
         assert np.count_nonzero(ref_t[..., trb._F_VTGT]) > 20
     np.testing.assert_allclose(got_t, ref_t, rtol=1e-9, atol=1e-12)
+
+
+ROUTE_CASES = {  # case -> (flag reads, frame loops) of one call on the CPU
+    "parallel": (1, 0), "silence": (1, 0), "crossing_glides": (1, 0),
+    "cap_violation": (1, 1), "force_scan": (0, 1), "min_volume_0": (0, 1),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTE_CASES))
+def test_cpu_lanes_keep_the_frame_parallel_try(name):
+    """CPU lanes still try the frame-parallel tracker where min_volume > 0
+    and the loop is not forced: one violation-flag read, and the exact
+    frame loop only on a violation; forced or at min_volume 0, no read and
+    one loop. (On the card the frame-loop kernel builds the tables with
+    no read: tests/test_torch_cuda_scan.py.)"""
+    freq, mag, kw, pools, _jax_kw, port_kw = _case_inputs(name)
+    pan, phase = pools or _pools(freq.shape[0], kw["max_voices"])
+    syncs, loops = tdt.HOST_SYNCS, tdt.FRAME_LOOPS
+    tdt.build_tables_device(freq, mag, *LOUD, pan, phase, device="cpu", **kw,
+                            **port_kw)
+    assert (tdt.HOST_SYNCS - syncs, tdt.FRAME_LOOPS - loops) == ROUTE_CASES[name]
 
 
 @pytest.mark.parametrize("force_scan", [False, True])
