@@ -183,7 +183,8 @@ def _peaks(mono, window, scale=None, *, window_size: int, stride: int,
     scale (2 / sum(window))^2 (0-d): df_mode "hybrid" selects peaks from
     the float32 rfft spectrum and evaluates the selected bins in float64
     (ops/dfft_hybrid.hybrid_peaks_df32); "ladder" selects and evaluates on
-    the float64 spectrum (ops/stft._top_peaks_df)."""
+    the float64 spectrum (ops/stft.ladder_peaks_df). Either mode's float64
+    work runs in the span "analysis_f64", inside "analysis"."""
     if df_mode is None:
         sq = stft_ops._stft_sqmag(mono, window, window_size=window_size,
                                   stride=stride, fft_length=fft_len)
@@ -196,10 +197,9 @@ def _peaks(mono, window, scale=None, *, window_size: int, stride: int,
     if df_mode == "ladder":
         n_frames = max(0, (mono.shape[-1] - window_size) // stride + 1)
         frames = stft_ops.frame_signal(mono, window_size, stride, n_frames)
-        sq = stft_ops.frames_sqmag_f64(frames, window, scale,
-                                       fft_length=fft_len)
-        return stft_ops._top_peaks_df(sq, sample_rate=sample_rate,
-                                      fft_length=fft_len, k=k)
+        return stft_ops.ladder_peaks_df(frames, window, scale,
+                                        sample_rate=sample_rate,
+                                        fft_length=fft_len, k=k)
     raise ValueError(f"unknown df analysis mode {df_mode!r}")
 
 
@@ -424,9 +424,10 @@ def _tracker_call_kwargs(rconfig, rcfg, n_frames: int, at_arrays) -> dict:
 def _track(freq, mag, tracker_args, tr_kw: dict, rconfig):
     """The device tracker's (table, dropped) of the peaks: (B, F, k) go to
     build_tables_device_batch, (F, k) to build_tables_device_df in the
-    fidelity chain and to build_tables_device otherwise. The entry is
-    looked up on device_tracker at each call, so that a wrapper set there
-    (the benchmark's harness keeps the peaks through one) sees every call."""
+    fidelity chain (which builds its table through build_tables_device)
+    and to build_tables_device otherwise. The entry is looked up on
+    device_tracker at each call, so that a wrapper set there (the
+    benchmark's harness keeps the peaks through one) sees every call."""
     if freq.dim() == 3:
         build = device_tracker.build_tables_device_batch
     elif rconfig.dtype == "df32":

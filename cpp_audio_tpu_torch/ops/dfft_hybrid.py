@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from . import stft as stft_ops
 
 
@@ -33,7 +34,8 @@ def hybrid_peaks_df32(signal: torch.Tensor, window: torch.Tensor,
     window: (window_size,) float64; scale: 0-d float64, the unit-sine
     scale (2 / sum(window))^2. Selection is JAX's (:315-320): the float32
     rfft of frames * float32(window), times float32(scale), through
-    `_top_bins`.
+    `_top_bins`. The float64 half (the spectrum, the three-bin gathers and
+    the QIFFT) runs in the span "analysis_f64".
     """
     n = signal.shape[0]
     n_frames = max(0, (n - window_size) // stride + 1)
@@ -44,10 +46,11 @@ def hybrid_peaks_df32(signal: torch.Tensor, window: torch.Tensor,
     bins, top_db = stft_ops._top_bins(sq32, sample_rate=sample_rate,
                                       fft_length=fft_length, k=k)
     nb = fft_length // 2 + 1
-    sq = stft_ops.frames_sqmag_f64(frames, window, scale, fft_length=fft_length)
-    # bins 0 and nb-1 take the -600 dB sentinel in _qifft_df: any in-range
-    # neighbour serves there
-    sp, sc, sn = (torch.gather(sq, 1, torch.clamp(bins + d, 0, nb - 1))
-                  for d in (-1, 0, 1))
-    return stft_ops._qifft_df(bins, sp, sc, sn, torch.isfinite(top_db), nb=nb,
-                              sample_rate=sample_rate, fft_length=fft_length)
+    with span("analysis_f64", signal.device):
+        sq = stft_ops.frames_sqmag_f64(frames, window, scale, fft_length=fft_length)
+        # bins 0 and nb-1 take the -600 dB sentinel in _qifft_df: any in-range
+        # neighbour serves there
+        sp, sc, sn = (torch.gather(sq, 1, torch.clamp(bins + d, 0, nb - 1))
+                      for d in (-1, 0, 1))
+        return stft_ops._qifft_df(bins, sp, sc, sn, torch.isfinite(top_db), nb=nb,
+                                  sample_rate=sample_rate, fft_length=fft_length)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import to_tensor
+from ..utils.profiling import span
 
 
 def half_gaussian_window(sigmas: float, half_size: int) -> np.ndarray:
@@ -233,6 +234,19 @@ def _qifft_df(bins, sp, sc, sn, fin, *, nb: int, sample_rate: int,
     freq = (delta + bins.to(torch.float64)) * (sample_rate / fft_length)
     mag = dbc - 0.25 * (pmn * delta)
     return freq, torch.where(fin, mag, -torch.inf)
+
+
+def ladder_peaks_df(frames: torch.Tensor, window: torch.Tensor,
+                    scale: torch.Tensor, *, sample_rate: int, fft_length: int,
+                    k: int):
+    """The "ladder" double-grade analysis of float32 frames: the float64
+    spectrum (frames_sqmag_f64), then selection and values on it
+    (_top_peaks_df), in the span "analysis_f64". Returns (freq, mag_db),
+    float64 (F, k)."""
+    with span("analysis_f64", frames.device):
+        sq = frames_sqmag_f64(frames, window, scale, fft_length=fft_length)
+        return _top_peaks_df(sq, sample_rate=sample_rate,
+                             fft_length=fft_length, k=k)
 
 
 def _top_peaks_df(sq: torch.Tensor, *, sample_rate: int, fft_length: int,

@@ -179,10 +179,11 @@ def test_step_runs_each_stage_once(monkeypatch, case):
     card) over every job, one analysis (an STFT and a top-k; the fidelity
     chain's hybrid peaks), one modulator pass, one carrier vocode, one call
     of the one tracker entry the step's peaks call for, with (B, F, k)
-    peaks for a batch and (F, k) for a job, and one render (of one chunk
-    here: 2 s fits one). Each function is counted on its module, where the
-    chain looks it up at each call (the benchmark's harness wraps the
-    tracker's entries there to keep the peaks)."""
+    peaks for a batch and (F, k) for a job (the fidelity chain's entry
+    builds its table through one call of build_tables_device), and one
+    render (of one chunk here: 2 s fits one). Each function is counted on
+    its module, where the chain looks it up at each call (the benchmark's
+    harness wraps the tracker's entries there to keep the peaks)."""
     calls, dims = {}, []
 
     def counted(mod, name):
@@ -219,9 +220,11 @@ def test_step_runs_each_stage_once(monkeypatch, case):
         assert r.resynth.dim() == 2 and r.vocoded.dim() == 1
     analysis = (("hybrid_peaks_df32",) if case == "df32"
                 else ("_stft_sqmag", "_top_peaks"))
+    tracker = ((entries["df32"], entries["single"]) if case == "df32"
+               else (entries[case],))
     assert calls == dict.fromkeys(("render_blocks", *analysis, "_modulator_band_amps_fast",
-                                   "_carrier_vocode", entries[case], "_render_slots"), 1)
-    assert dims == [3 if case == "batch" else 2]
+                                   "_carrier_vocode", *tracker, "_render_slots"), 1)
+    assert dims == [3 if case == "batch" else 2] * len(tracker)
 
 
 @pytest.mark.parametrize("render", ["plain", "tiled"])
