@@ -226,9 +226,11 @@ Phases (any failure exits non-zero and prints no result):
      line's `launches_batch`), the tracker's host syncs (must be 0) and
      path (the exact frame loop),
      synchronising calls (sync debug mode) against a single chain's step()
-     (no more), peak device memory, profile. The batched synth: each job's
-     slice equal to the bit to that job's own launch, max|kernel - plain|
-     (bar 2e-5), its time amortized (`ms_batch`) beside its bound
+     (at most one more: the stream synchronisation of the outputs' delivery
+     to the host, which the single step(), whose outputs stay on the
+     device, does not make), peak device memory, profile. The batched
+     synth: each job's slice equal to the bit to that job's own launch,
+     max|kernel - plain| (bar 2e-5), its time amortized (`ms_batch`) beside its bound
      (`bound_batch`, cuda_voicebank.kernel_bound over every job's live
      voice-samples). Each job within 1e-3 (resynth) and 3e-3 (vocoded) of
      the peak of run_offline_chain_device on its bank on cuda, dropped
@@ -261,6 +263,21 @@ Phases (any failure exits non-zero and prints no result):
      (`render_bound_ms`) with the share reached; launches per call and per
      step() of prepare_offline_chain_device (`render_launches_step`, must
      be 1).
+ 18. the host link, the bound of the chain's "outputs" stage
+     (analysis/chain._to_host): a 508 MB device-to-host copy (a batch of 16
+     headline jobs' stereo and vocoded outputs) into fresh pageable memory
+     (`.cpu()`, what a caller of a device output pays) against one into a
+     pinned tensor from torch's caching host allocator (non_blocking, then
+     one stream synchronisation), 6 warm walls each in turns (pageable,
+     pinned, pinned, pageable, 3 calls each) beside the copy's device time
+     (CUDA events), and the first pinned call, whose wall holds
+     the allocator's cudaHostAlloc; the cudaHostAlloc of a fresh 768 MB
+     block; the cost of one reading of torch.cuda.host_memory_stats (why no
+     span counter reads the allocator: every span reads every counter
+     twice).
+     Kernels-line keys `d2h_pageable_gbps`, `d2h_pinned_gbps`,
+     `host_alloc_768mb_ms`, `outputs_bound_ms_batch` (508 MB at the pinned
+     rate).
 Prints the kernel line {"kernels": [...]}, the card line, and last the
 {"ok": true, "device": {...}} line.
 
@@ -3263,7 +3280,8 @@ def _mesh_rel(got, ref) -> float:
     """max |got - ref| / peak(ref) over ref's length (the sharded chains'
     stereo runs longer: its frames are padded to the world size)."""
     m = min(got.shape[0], ref.shape[0])
-    return float((got[:m] - ref[:m]).abs().max()) / max(float(ref[:m].abs().max()), 1e-9)
+    ref = ref[:m].to(got.device)
+    return float((got[:m] - ref).abs().max()) / max(float(ref.abs().max()), 1e-9)
 
 
 def _hold_mesh(tag, got, ref, bar=MESH_BAR) -> None:
@@ -3828,10 +3846,11 @@ def _serving_batch(card: str) -> dict:
           f"{syncs}, path {rec['path']}; synchronising calls (sync debug mode) {n_sync} "
           f"({where}) against a single chain's step() {n_sync_single} ({where_single}); "
           f"{_memory(rec)}")
-    if launches != 1 or syncs != 0 or n_sync > n_sync_single:
+    if launches != 1 or syncs != 0 or n_sync > n_sync_single + 1:
         raise RuntimeError(f"(16a) {launches} kernel launches, {syncs} tracker syncs, "
                            f"{n_sync} synchronising calls (single step: {n_sync_single}) "
-                           "per step; expected 1, 0 and no more than a single step")
+                           "per step; expected 1, 0 and no more than a single step's "
+                           "and the outputs' one")
     if not (bool(torch.isfinite(stereo).all()) and bool(torch.isfinite(voc).all())
             and stereo.shape[0] == B and stereo.shape[2] == 2):
         raise RuntimeError("(16a) batch output not finite or misshapen")
@@ -3898,6 +3917,98 @@ def _serving_batch(card: str) -> dict:
     return {"launches_batch": launches, "ms_batch": ms_batch,
             "bound_batch": bound["bound_ms"], "bound_batch_by": bound["bound_by"],
             "max_abs_err_batch": err}
+
+
+HOST_LINK_BYTES = 508 * 10**6   # phase 18: a batch of 16 headline jobs' outputs
+HOST_ALLOC_BYTES = 768 * 2**20  # phase 18: one pinned block, allocated afresh
+
+
+def phase_host_link(card: str) -> dict:
+    """Phase 18: the device-to-host copy of HOST_LINK_BYTES into fresh
+    pageable memory and into a pinned tensor from the caching host
+    allocator (walls and device times), the cudaHostAlloc of a fresh
+    HOST_ALLOC_BYTES block, and the cost of a reading of the allocator's
+    statistics. Returns the kernels-line keys."""
+    import timeit
+
+    import torch
+
+    def host_allocs():
+        """Blocks the caching host allocator has created to grow its pool."""
+        return int(torch.cuda.host_memory_stats().get("num_host_alloc", 0))
+
+    src = torch.ones(HOST_LINK_BYTES // 4, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+
+    def pageable():
+        return src.cpu()
+
+    def pinned():
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        host.copy_(src, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return host
+
+    def timed(fn):
+        """(wall s, device ms) of one call; its output is dropped at once,
+        so a pinned block goes back to the allocator's cache."""
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        ok = bool(out[-1] == 1.0)
+        del out
+        if not ok:
+            raise RuntimeError("(18) the copy to the host lost its values")
+        return wall, start.elapsed_time(end)
+
+    allocs0 = host_allocs()
+    first_pinned = timed(pinned)
+    allocs_first = host_allocs() - allocs0
+    rows = {}
+    for name, fn in (("pageable", pageable), ("pinned", pinned), ("pinned ", pinned),
+                     ("pageable ", pageable)):
+        rows.setdefault(name.strip(), []).extend(timed(fn) for _ in range(3))
+    allocs_warm = host_allocs() - allocs0 - allocs_first
+    gbps = {}
+    for name, got in rows.items():
+        walls = sorted(w for w, _ in got)
+        dev = sorted(d for _, d in got)
+        gbps[name] = HOST_LINK_BYTES / statistics.median(walls) / 1e9
+        print(f"[host link] {HOST_LINK_BYTES / 1e6:.1f} MB to the host, {name}: wall median "
+              f"{statistics.median(walls) * 1e3:.3f} ms of {len(walls)} "
+              f"({_ms_list(walls)} ms; {gbps[name]:.2f} GB/s), device "
+              f"{statistics.median(dev):.3f} ms ({HOST_LINK_BYTES / statistics.median(dev) / 1e6:.2f}"
+              f" GB/s) on {card}")
+    print(f"[host link] first pinned copy (the allocator grows its pool by "
+          f"{allocs_first} block): wall {first_pinned[0] * 1e3:.3f} ms, device "
+          f"{first_pinned[1]:.3f} ms; warm pinned copies made {allocs_warm} allocations")
+    del src
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    block = torch.empty(HOST_ALLOC_BYTES, dtype=torch.uint8, pin_memory=True)
+    alloc_ms = (time.perf_counter() - t0) * 1e3
+    stats = torch.cuda.host_memory_stats()
+    del block
+    reading_us = timeit.timeit(host_allocs, number=2000) / 2000 * 1e6
+    print(f"[host link] a fresh {HOST_ALLOC_BYTES / 2**20:.0f} MiB pinned block "
+          f"(cudaHostAlloc of the allocator's power-of-two size): {alloc_ms:.3f} ms; the "
+          f"allocator holds {stats.get('allocated_bytes.current', 0) / 2**20:.0f} MiB in "
+          f"{stats.get('allocations.current', 0)} blocks (peak "
+          f"{stats.get('allocated_bytes.peak', 0) / 2**20:.0f} MiB), its slowest growth "
+          f"{stats.get('host_alloc_time.max', 0) / 1e3:.3f} ms; one reading of its statistics "
+          f"{reading_us:.2f} us")
+    if allocs_warm != 0 or gbps["pinned"] <= gbps["pageable"]:
+        raise RuntimeError(f"(18) warm pinned copies allocated {allocs_warm} blocks, or ran "
+                           f"no faster than pageable ({gbps})")
+    bound = HOST_LINK_BYTES / gbps["pinned"] / 1e6
+    print(f"[host link] the outputs stage's bound for a batch of 16 headline jobs: "
+          f"{bound:.3f} ms at the pinned rate")
+    return {"d2h_pageable_gbps": gbps["pageable"], "d2h_pinned_gbps": gbps["pinned"],
+            "host_alloc_768mb_ms": alloc_ms, "outputs_bound_ms_batch": bound}
 
 
 def _breadth_configs():
@@ -4046,6 +4157,7 @@ def main() -> int:
         measured.update(phase_mesh(card))
         measured.update(phase_repro(card))
         measured.update(phase_serving(card))
+        measured.update(phase_host_link(card))
     except Exception:  # noqa: BLE001 - report any phase failure, exit non-zero
         traceback.print_exc()
         return 1

@@ -16,7 +16,9 @@ Port of cpp_audio_tpu/analysis/chain.py, with its two trackers:
     :751-815; prepare_offline_chain_device_batch, :818-936): the device
     tracker (analysis/device_tracker.py) builds the table where the peaks
     are, so nothing crosses to the host but, off the card, the tracker's
-    violation flag.
+    violation flag, and at the end the outputs: run_offline_chain_device
+    and the batched step() return host tensors, as the JAX package's
+    single chain returns numpy (:739-748).
     Eager PyTorch dispatches op by op; "single dispatch" names the JAX
     program this mirrors, not a property of the port.
 The single-dispatch chain has two variants, as in the JAX package: the
@@ -31,8 +33,10 @@ in the analysis (`_peaks`) and in the tracker's entry (`_track`).
 
 Spans (utils/profiling.span): a "chain" span around each
 run_offline_chain(_device) call and each batched step(), a "staging" span
-around the staging of a step's arguments, and a span per stage (STAGES)
-around its work; `timings=` reads the same spans (profiling.timed).
+around the staging of a step's arguments, a span per stage (STAGES)
+around its work, and an "outputs" span around the delivery of
+run_offline_chain_device's and the batched step()'s outputs to the host
+(_to_host); `timings=` reads the stages' spans (profiling.timed).
 
 Reference scope: RtResynth's offline job loop (source/rt.resynth.lib.cpp:
 1185-1235 — input -> analysis -> resynth synth + vocoder).
@@ -50,6 +54,7 @@ from ..device import dtype_of
 from ..models import resynth_bank, voicebank
 from ..ops import dfft_hybrid
 from ..ops import stft as stft_ops
+from ..utils import profiling
 from ..utils.profiling import span, timed
 from . import autotune as at
 from . import device_tracker
@@ -65,6 +70,11 @@ DF_ANALYSIS_MODE = os.environ.get("CPP_AUDIO_DF_ANALYSIS", "hybrid")
 # the chain's stage spans, in their order: the keys of `timings=`
 STAGES = ("synth", "analysis", "vocoder", "tracker", "render")
 
+# Outputs delivered to the host through pinned buffers (_to_host): three a
+# job or batch on a CUDA device, none elsewhere; a span counter
+PINNED_OUTPUTS = 0
+profiling.COUNTERS["pinned_outputs"] = lambda: PINNED_OUTPUTS
+
 
 @dataclass
 class OfflineChainResult:
@@ -72,7 +82,7 @@ class OfflineChainResult:
     vocoded: torch.Tensor   # (m,) vocoder mix of the mixdown
     n_frames: int
     tracker: str = "native"  # which tracker built the slot table
-    dropped: object = 0     # dropped-NoteOn count (a device scalar on the device path)
+    dropped: object = 0     # dropped-NoteOn count (a host scalar tensor on the device path)
 
 
 def _synth_dtype(rconfig) -> str:
@@ -640,6 +650,25 @@ def assemble_framed_stereo(framed: torch.Tensor, start_sample: int) -> torch.Ten
     return torch.nn.functional.pad(flat, (0, 0, start_sample, 0))
 
 
+def _to_host(outputs: tuple, dev: torch.device) -> tuple:
+    """The chain's outputs on the host, in the span "outputs". On a CUDA
+    device each one is copied without blocking into a pinned host tensor
+    from torch's caching host allocator, and the current stream is
+    synchronised once, after the last copy. The allocator hands a block out
+    again only once no tensor refers to it, so an output that a caller
+    keeps is never written over by a later call. Elsewhere the outputs are
+    host tensors already and are returned as they are."""
+    global PINNED_OUTPUTS
+    with span("outputs", dev):
+        if dev.type != "cuda":
+            return outputs
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     .copy_(t, non_blocking=True) for t in outputs)
+        torch.cuda.current_stream(dev).synchronize()
+        PINNED_OUTPUTS += len(host)
+    return host
+
+
 def run_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
                              rconfig: resynth_mod.ResynthConfig,
                              vparams: vocoder_mod.VocoderParams, carrier,
@@ -650,10 +679,11 @@ def run_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
     in place of the host pitch pipeline: synth, analysis, tracking, render
     and vocoder all on `device`. Covers the reference's default config
     space including autotune (scale/chord/intervals) and harmonize; dtype
-    "df32" runs the fidelity chain (float32 out). `resynth` is (T, 2),
-    `dropped` a device scalar. timings: as in run_offline_chain ("tracker"
-    is the device tracker; "synth" includes staging the arguments). The
-    call is one "chain" span, holding "staging" and the five stages'."""
+    "df32" runs the fidelity chain (float32 out). `resynth` (T, 2),
+    `vocoded` and the scalar `dropped` are host tensors, pinned on a CUDA
+    device (_to_host). timings: as in run_offline_chain ("tracker" is the
+    device tracker; "synth" includes staging the arguments). The call is
+    one "chain" span, holding "staging", the five stages' and "outputs"."""
     dev = torch.device(device)
     rcfg = resynth_mod._render_config(rconfig)
     with span("chain", dev), timed(timings, dev, STAGES):
@@ -661,7 +691,8 @@ def run_offline_chain_device(bank: voicebank.VoiceBank, n_samples: int,
             bank, n_samples, rconfig, vparams, carrier, block_size=block_size,
             draws=draws, device=dev)
         framed, mix, dropped = step()
-        stereo = assemble_framed_stereo(framed, rcfg.start_sample)
+        stereo, mix, dropped = _to_host(
+            (assemble_framed_stereo(framed, rcfg.start_sample), mix, dropped), dev)
     return OfflineChainResult(resynth=stereo, vocoded=mix, n_frames=n_frames,
                               tracker="device", dropped=dropped)
 
@@ -720,9 +751,9 @@ def prepare_offline_chain_device_batch(banks, n_samples: int,
     banks: list of VoiceBank (same n_samples/config per job).
     carrier: (n,) shared or (B, n) per-job.
     Returns (step, n_frames); step() -> (stereo (B, T, 2), vocoded (B, m),
-    dropped (B,)). The staging is a "staging" span (of the batch that the
-    next step() runs), each step() a "chain" span holding the five
-    stages'.
+    dropped (B,)) host tensors, pinned on a CUDA device (_to_host). The
+    staging is a "staging" span (of the batch that the next step() runs),
+    each step() a "chain" span holding the five stages' and "outputs".
     """
     if rconfig.dtype == "df32":
         raise ValueError("the batched chain runs float32 or float64")
@@ -743,7 +774,7 @@ def prepare_offline_chain_device_batch(banks, n_samples: int,
             framed, mix, dropped = _step(bank_args, av_args, tracker_args,
                                          av_kw=av_kw, tr_kw=tr_kw,
                                          rconfig=rconfig)
-            stereo = assemble_framed_stereo(framed, rcfg.start_sample)
-        return stereo, mix, dropped
+            return _to_host((assemble_framed_stereo(framed, rcfg.start_sample), mix,
+                             dropped), dev)
 
     return step, n_frames

@@ -132,7 +132,8 @@ def string_plot(values, *, height: int = 16, width: int | None = None,
 
 # Program counters a span records the change of: name -> a reading (the
 # modules that own the counters register them; analysis/device_tracker:
-# "host_waits" and "frame_loops"; ops/cuda_render: "render_launches").
+# "host_waits" and "frame_loops"; ops/cuda_render: "render_launches";
+# analysis/chain: "pinned_outputs").
 COUNTERS: dict = {}
 
 # The live path's waits for the device (analysis/streaming,

@@ -51,6 +51,7 @@ Bars:
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from cpp_audio_tpu.analysis import autotune as jat
 from cpp_audio_tpu.analysis import chain, resynth, vocoder
@@ -68,6 +69,7 @@ from cpp_audio_tpu_torch.models import voicebank as tvb
 from cpp_audio_tpu_torch.ops import cuda_voicebank as cv
 from cpp_audio_tpu_torch.ops import dfft_hybrid as tdfft_hybrid
 from cpp_audio_tpu_torch.ops import stft as tstft
+from cpp_audio_tpu_torch.utils import profiling
 import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
 
@@ -225,6 +227,52 @@ def test_step_runs_each_stage_once(monkeypatch, case):
     assert calls == dict.fromkeys(("render_blocks", *analysis, "_modulator_band_amps_fast",
                                    "_carrier_vocode", *tracker, "_render_slots"), 1)
     assert dims == [3 if case == "batch" else 2] * len(tracker)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_step_outputs_are_host_tensors(monkeypatch, dtype):
+    """On the CPU the batched step() returns the step's outputs as they
+    are: the very tensors handed to the delivery (_to_host), host tensors,
+    with dropped a host (B,) tensor equal to the bit to each job's count in
+    a second step. Under the profiler each step() records one "outputs"
+    span inside its "chain" span, after the five stages', which delivers
+    nothing through a pinned buffer."""
+    handed = []
+    deliver = tchain._to_host
+
+    def kept(outputs, dev):
+        handed.append(outputs)
+        return deliver(outputs, dev)
+
+    monkeypatch.setattr(tchain, "_to_host", kept)
+    rcfg = tresynth.ResynthConfig(sample_rate=SR, analysis_volume=1.0, dtype=dtype)
+    tbanks = [interop.voicebank_from_numpy(_job_bank(s)) for s in SEEDS]
+    step, _ = tchain.prepare_offline_chain_device_batch(
+        tbanks, N, rcfg, tvocoder.VocoderParams(sample_rate=SR), CARRIER,
+        block_size=BLOCK, device="cpu")
+    first = len(profiling.SPANS)
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = step()
+        again = step()
+    recs = profiling.SPANS.records[first:]
+    assert len(handed) == 2 and all(a is b for a, b in zip(got, handed[0]))
+    assert all(t.device.type == "cpu" for t in got)
+    stereo, voc, dropped = got
+    assert stereo.dtype == voc.dtype == getattr(torch, dtype)
+    assert dropped.shape == (len(SEEDS),) and torch.equal(dropped, again[2])
+    assert torch.equal(stereo, again[0]) and torch.equal(voc, again[1])
+    names = [(r.name, r.parent) for r in recs]
+    job = [("chain", None)] + [(s, "chain") for s in (*tchain.STAGES, "outputs")]
+    assert sorted(names) == sorted(job * 2)
+    outs = [r for r in recs if r.name == "outputs"]
+    chains = [r for r in recs if r.name == "chain"]
+    for out, chain_rec in zip(outs, chains):
+        assert out.id == chain_rec.id
+        assert chain_rec.t0_ns <= out.t0_ns and out.t1_ns <= chain_rec.t1_ns
+        assert out.counts["pinned_outputs"] == chain_rec.counts["pinned_outputs"] == 0
+    render = [r for r in recs if r.name == "render"]
+    assert all(r.t1_ns <= o.t0_ns for r, o in zip(render, outs))
+    assert outs[0].id != outs[1].id
 
 
 @pytest.mark.parametrize("render", ["plain", "tiled"])

@@ -13,6 +13,7 @@ The batch against the single chain at 1e-3 * peak + 1e-7 (resynth) and
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from cpp_audio_tpu.analysis import chain, resynth, vocoder
 from cpp_audio_tpu.core import events, voices
@@ -23,6 +24,7 @@ from cpp_audio_tpu_torch.analysis import chain as tchain
 from cpp_audio_tpu_torch.analysis import device_tracker as tdt
 from cpp_audio_tpu_torch.analysis import resynth as tresynth
 from cpp_audio_tpu_torch.analysis import vocoder as tvocoder
+from cpp_audio_tpu_torch.utils import profiling
 from test_chain import _workload
 import test_torch_cuda_kernels  # noqa: F401  (caps torch's threads)
 
@@ -104,6 +106,38 @@ def test_prepare_returns_framed_step():
     flat = tchain.assemble_framed_stereo(framed, 0)
     assert flat.shape == ((n_frames + 8) * stride, 2)
     assert torch.equal(flat[stride:2 * stride], framed[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "df32"])
+def test_outputs_are_the_steps_on_the_host(dtype):
+    """On the CPU run_offline_chain_device returns its step's outputs as
+    they are: host tensors equal to the bit to prepare_offline_chain_device's
+    step() flattened by assemble_framed_stereo, with dropped a host scalar.
+    Under the profiler the delivery is one "outputs" span inside the job's
+    "chain" span, after the five stages', and delivers nothing through a
+    pinned buffer."""
+    n = SR // 2
+    bank, scfg = _workload(SR, n)
+    args = (interop.voicebank_from_numpy(bank), n,
+            tresynth.ResynthConfig(sample_rate=SR, dtype=dtype),
+            tvocoder.VocoderParams(sample_rate=SR), CARRIER[:n])
+    kw = dict(block_size=scfg.block_size, device="cpu")
+    first = len(profiling.SPANS)
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = tchain.run_offline_chain_device(*args, **kw)
+    recs = [r for r in profiling.SPANS.records[first:] if r.parent in ("chain", None)]
+    framed, mix, dropped = tchain.prepare_offline_chain_device(*args, **kw)[0]()
+    start = tresynth._render_config(args[2]).start_sample
+    assert all(t.device.type == "cpu" for t in (got.resynth, got.vocoded, got.dropped))
+    assert torch.equal(got.resynth, tchain.assemble_framed_stereo(framed, start))
+    assert torch.equal(got.vocoded, mix)
+    assert got.dropped.dim() == 0 and int(got.dropped) == int(dropped)
+    assert [r.name for r in recs] == ["staging", *tchain.STAGES, "outputs", "chain"]
+    out, job = recs[-2], recs[-1]
+    assert out.parent == "chain" and out.id == job.id
+    assert job.t0_ns <= out.t0_ns and out.t1_ns <= job.t1_ns
+    assert recs[-3].t1_ns <= out.t0_ns
+    assert out.counts["pinned_outputs"] == job.counts["pinned_outputs"] == 0
 
 
 def _mod_mode_mixes(dtype, n):

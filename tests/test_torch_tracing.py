@@ -76,7 +76,7 @@ def _annotations(prof, tmp_path):
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     evs = json.loads(path.read_text())["traceEvents"]
-    names = {"chain", "staging", *STAGES}
+    names = {"chain", "staging", *STAGES, "outputs"}
     return sorted((e for e in evs if e.get("ph") == "X" and e.get("cat") == "user_annotation"
                    and e["name"] in names), key=lambda e: e["ts"])
 
@@ -91,24 +91,25 @@ def test_spans_nest_in_the_trace_and_the_store(tmp_path):
         _single()
         _batch()
     ann = _annotations(prof, tmp_path)
-    assert [e["name"] for e in ann] == ["chain", "staging", *STAGES,
-                                        "staging", "chain", *STAGES]
-    single, batch_staging, batch = ann[0], ann[7], ann[8]
-    assert all(_inside(e, single) for e in ann[1:7])
+    assert [e["name"] for e in ann] == ["chain", "staging", *STAGES, "outputs",
+                                        "staging", "chain", *STAGES, "outputs"]
+    single, batch_staging, batch = ann[0], ann[8], ann[9]
+    assert all(_inside(e, single) for e in ann[1:8])
     assert not _inside(batch_staging, batch) and batch_staging["ts"] < batch["ts"]
-    assert all(_inside(e, batch) for e in ann[9:])
-    stages = ann[9:]
+    assert all(_inside(e, batch) for e in ann[10:])
+    stages = ann[10:]
     assert all(a["ts"] + a["dur"] <= b["ts"] for a, b in zip(stages, stages[1:]))
 
     recs = profiling.SPANS.records[first:]
     assert [(r.name, r.parent) for r in recs] == (
-        [("staging", "chain")] + [(s, "chain") for s in STAGES] + [("chain", None)]
-        + [("staging", None)] + [(s, "chain") for s in STAGES] + [("chain", None)])
+        [("staging", "chain")] + [(s, "chain") for s in (*STAGES, "outputs")]
+        + [("chain", None)] + [("staging", None)]
+        + [(s, "chain") for s in (*STAGES, "outputs")] + [("chain", None)])
     ids = [r.id for r in recs]
-    assert len(set(ids[:7])) == 1 and len(set(ids[7:])) == 1 and ids[7] == ids[0] + 1
+    assert len(set(ids[:8])) == 1 and len(set(ids[8:])) == 1 and ids[8] == ids[0] + 1
     assert all(r.device_ms is None and r.t1_ns >= r.t0_ns for r in recs)
     s = profiling.SPANS.summary(first)["spans"]
-    assert set(s) == {"chain", "staging", *STAGES}
+    assert set(s) == {"chain", "staging", *STAGES, "outputs"}
     assert all(v["jobs"] == 2 and v["count"] == 2 and v["device_ms"] is None
                for v in s.values())
     assert s["chain"]["host_ms"] >= sum(s[k]["host_ms"] for k in STAGES)
@@ -135,7 +136,7 @@ def test_host_waits_are_the_counters_by_hand():
     assert recs["tracker"].counts["host_waits"] == 1
     assert recs["staging"].counts == {"host_waits": 0, "frame_loops": 0,
                                       "render_launches": 0, "live_waits": 0,
-                                      "scan_launches": 0}
+                                      "scan_launches": 0, "pinned_outputs": 0}
     # the CPU's render is the kernel's plain twin: no launch in any span;
     # the offline chain makes none of the live path's waits
     assert all(r.counts["render_launches"] == 0 for r in recs.values())
@@ -179,5 +180,5 @@ def test_device_trace_writes_spans(tmp_path):
         _single()
     assert (tmp_path / "trace.json").exists()
     spans = json.loads((tmp_path / "spans.json").read_text())
-    assert set(spans["spans"]) == {"chain", "staging", *STAGES}
+    assert set(spans["spans"]) == {"chain", "staging", *STAGES, "outputs"}
     assert spans["spans"]["chain"]["jobs"] == 1 and spans["dropped"] == 0
